@@ -3,7 +3,7 @@
     python -m audio_to_sheet_music_tpu_torch.apps.separate \\
         --track mixture.wav [--checkpoint params.npz] \\
         [--stems drums bass other vocals piano] [--output-dir out] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--kernels default|opt_in|none]
 
 Reads a WAV (resampled to 44.1 kHz stereo when it is not), separates every
 requested stem (free text: zero-shot prompts run like the canonical four)
@@ -44,6 +44,9 @@ def main(argv=None) -> None:
     ap.add_argument("--segment-seconds", type=float, default=6.0)
     ap.add_argument("--overlap-seconds", type=float, default=1.5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kernels", default="default",
+                    choices=["default", "opt_in", "none"],
+                    help="hand-written kernels to run (ops/select.py)")
     args = ap.parse_args(argv)
 
     from ..infer.session import Separator
@@ -56,7 +59,7 @@ def main(argv=None) -> None:
     mixture = load_mixture(path)
     model = atht.load_params(atht.init(0), args.checkpoint)
     sep = Separator(model, args.segment_seconds, args.overlap_seconds,
-                    device=args.device)
+                    device=args.device, kernels=args.kernels)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     if mixture.dtype == np.int16:

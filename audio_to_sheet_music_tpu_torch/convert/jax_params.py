@@ -89,3 +89,13 @@ def state_dict_from_npz(path: str | Path, prefix: Sequence[str] = ()
         return {translate(list(prefix) + k.split("/")): torch.from_numpy(
                     np.array(data[k], dtype=np.float32))
                 for k in data.files}
+
+
+def load_npz(module: torch.nn.Module, path: str | Path,
+             prefix: Sequence[str] = ()) -> torch.nn.Module:
+    """Load a ``save_params_npz`` file of the tree at ``prefix`` into
+    ``module`` (the module that holds that subtree), strictly."""
+    state = state_dict_from_npz(path, prefix=prefix)
+    cut = len(".".join(prefix)) + 1 if prefix else 0
+    module.load_state_dict({k[cut:]: v for k, v in state.items()}, strict=True)
+    return module

@@ -1,0 +1,44 @@
+// Fused attention block for the cross-domain transformer (opt-in kernels).
+//
+// Replaces audio_to_sheet_music_tpu/ops/pallas_attn.py:attn_block (Pallas
+// body _attn_kernel), which the JAX package runs through mha_residual when
+// ATSM_PALLAS_ATTN=1 and the whole-layer kernel is off.  Per query row:
+//
+//   a   = bf16(concat_heads softmax(q_h k_hᵀ / √64, padded keys masked) v_h)
+//   out = bf16(x + γ · (a @ Woᵀ + bo))
+//
+// with q, k, v already projected (the JAX package leaves the projections to
+// XLA; here they are torch matmuls), bf16 operands and f32 accumulation.
+//
+// What bounds it on an H100: the products.  At a training batch of 8 x 6 s a
+// freq self block is 2 x 8 x 2072 x (2 x 2072 x 512 + 512 x 512) ≈ 75 GFLOP
+// against ~70 MB of operands, far above the card's ~295 FLOP/byte ridge.
+//
+// Design.  The Pallas kernel keeps a batch row's whole K/V (2 x 2.1 MB at
+// S = 2072) resident in VMEM; a Hopper block has 227 KB.  So this is two
+// launches of the building blocks layer_tail.cu uses (attn_common.cuh): the
+// flash-attention launch, one block per (64-query tile, head, batch row)
+// streaming K/V in 64-key tiles with the online softmax, into a bf16 scratch;
+// then the 64x64-tile GEMM with the out-projection epilogue (+ bo, · γ, + the
+// bf16 residual, bf16 out).
+
+#include "attn_common.cuh"
+
+// Launch on `stream`.  Returns the first CUDA error (0 on success).  Scratch
+// the caller allocates: a (B, L, D) bf16.  D = heads x 64, a multiple of 64.
+extern "C" int attn_block_launch(const void* q, const void* k, const void* v,
+                                 const void* x, const void* wo,
+                                 const void* bo, const void* g, void* a,
+                                 void* out, int B, int L, int S, int D,
+                                 float scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  flash_kernel<<<dim3((L + QT - 1) / QT, D / DH, B), NT, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(a), L, S, D, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)gemm<EPI_RES_X>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(wo),
+      static_cast<const float*>(bo), static_cast<const float*>(g), x, out,
+      B * L, D, D, st);
+}

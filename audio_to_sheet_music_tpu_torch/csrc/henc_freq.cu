@@ -5,150 +5,57 @@
 // _block_body inside).  For each (batch b, output frequency row fo):
 //
 //   y   = gelu_erf(conv_{k=8, stride 4, pad 2 along F}(x) + bias)   (C x T)
-//   2 x DConv block d (dilation 2^d), over the row's (C, T):
-//     u = gelu_erf(GN1(conv_{k=3, dil}(y) + b1))                   (H x T)
-//     z = GN2(w2 u + b2)                                           (2C x T)
-//     y = y + scale * z[:C] * sigmoid(z[C:])
+//   2 x DConv block over the row (dconv_row.cuh)
 //   out = (wr y + br)[:C] * sigmoid((wr y + br)[C:])                (C x T)
 //
-// GN1/GN2 are GroupNorm(1) with f32 two-pass statistics over the row's
-// (channels, T) positions; the dilated taps read zeros before t = 0 and past
-// t = T-1.  Input and output are bf16, every intermediate f32.
+// Input and output are bf16, every intermediate f32.
 //
 // What bounds it on an H100: bytes.  Per 6 s chunk it reads ~4.2 MB and
 // writes ~12.7 MB of bf16 against ~2.4 GFLOP, under the card's ~295
 // FLOP/byte ridge for bf16 tensor-core work.
 //
-// Design.  One (b, fo) row at layer 0 is C=48 channels by T=259 frames, so
-// one block per row keeps the whole row in shared memory: y (C x T f32) and
-// u (H x T f32), ~56 KB.  The 2C-wide z is never stored: its GroupNorm
-// statistics take two passes that recompute it (6-deep dot per element) and
-// the GLU pass recomputes it once more.  Block reductions give the two
-// GroupNorms.  The contractions (depth 32, 144, 6 and 48) are f32 FMA
-// loops on the CUDA cores reading the weights through the read-only cache;
-// they are shallow enough that this first version keeps them off the
-// tensor cores, which makes it FMA-bound rather than byte-bound (moving the
-// conv and the 48->96 rewrite onto bf16 MMA tiles is the next step).  The
-// s2d relayout and the VMEM block model of the Pallas kernel are TPU
-// tiling artefacts and are not carried over.
+// Design.  Three stages, each over a (row, 32-frame tile) grid, so a chunk
+// of any length runs (the first version kept a whole (C + C/8, T) row in one
+// block's shared memory and refused T > 1076 frames):
+//   1. henc_conv_kernel: the strided conv + bias + GELU, one output per
+//      thread, into an f32 scratch y laid out as (b, fo) rows of (C, T);
+//   2. the DConv routine of dconv_row.cuh, both blocks in place on y (six
+//      launches; GroupNorm statistics merged from per-tile partials);
+//   3. henc_rewrite_kernel: the 1x1 C -> 2C conv and the GLU from a
+//      (C x 32) tile of y in shared memory, written to the (B, C, F/4, T)
+//      bf16 output.
+// The products are f32 FMA loops on the CUDA cores (contraction depths 32,
+// 3C, C/8 and C), which makes it FMA-bound rather than byte-bound; moving the
+// conv and the rewrite onto bf16 MMA tiles is the next step.  The s2d
+// relayout and the VMEM block model of the Pallas kernel are TPU tiling
+// artefacts and are not carried over.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-typedef __nv_bfloat16 bf16;
+#include "dconv_row.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+using dconv::bf16;
+using dconv::NT;
+using dconv::TT;
+
 constexpr int KF = 8;           // conv kernel along F
 constexpr int STRIDE = 4;
 constexpr int PAD = 2;
-constexpr float EPS = 1e-5f;
 
-struct DConvW {
-  const float *w1, *b1, *g1, *bt1, *w2, *b2, *g2, *bt2, *s;
-};
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// Sum over the block; every thread gets the same value.
-__device__ float block_sum(float v, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();                  // earlier readers of red are done
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NT / 32; ++i) t += red[i];
-  return t;
-}
-
-__device__ __forceinline__ float z_at(const DConvW& w, const float* u, int o,
-                                      int t, int H, int T) {
-  float acc = __ldg(w.b2 + o);
-  for (int hh = 0; hh < H; ++hh) acc += __ldg(w.w2 + o * H + hh) * u[hh * T + t];
-  return acc;
-}
-
-// One DConv depth block, in place on y (C x T); u is H x T scratch.
-__device__ void dconv_block(float* y, float* u, float* red, const DConvW& w,
-                            int dil, int C, int H, int T) {
-  const int nu = H * T;
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < nu; i += NT) {
-    const int hh = i / T, t = i % T;
-    float acc = __ldg(w.b1 + hh);
-    for (int c = 0; c < C; ++c) {
-      const float* wk = w.w1 + (hh * C + c) * 3;
-      const float* yr = y + c * T;
-      if (t - dil >= 0) acc += __ldg(wk) * yr[t - dil];
-      acc += __ldg(wk + 1) * yr[t];
-      if (t + dil < T) acc += __ldg(wk + 2) * yr[t + dil];
-    }
-    u[i] = acc;
-    s += acc;
-  }
-  const float mean1 = block_sum(s, red) / nu;
-  float q = 0.0f;
-  for (int i = threadIdx.x; i < nu; i += NT) {
-    const float d = u[i] - mean1;
-    q += d * d;
-  }
-  const float rstd1 = rsqrtf(block_sum(q, red) / nu + EPS);
-  for (int i = threadIdx.x; i < nu; i += NT) {
-    const int hh = i / T;
-    u[i] = gelu((u[i] - mean1) * rstd1 * __ldg(w.g1 + hh) + __ldg(w.bt1 + hh));
-  }
-  __syncthreads();
-
-  const int nz = 2 * C * T;
-  s = 0.0f;
-  for (int i = threadIdx.x; i < nz; i += NT) s += z_at(w, u, i / T, i % T, H, T);
-  const float mean2 = block_sum(s, red) / nz;
-  q = 0.0f;
-  for (int i = threadIdx.x; i < nz; i += NT) {
-    const float d = z_at(w, u, i / T, i % T, H, T) - mean2;
-    q += d * d;
-  }
-  const float rstd2 = rsqrtf(block_sum(q, red) / nz + EPS);
-  for (int i = threadIdx.x; i < C * T; i += NT) {
-    const int c = i / T, t = i % T;
-    const float a = (z_at(w, u, c, t, H, T) - mean2) * rstd2 * __ldg(w.g2 + c) +
-                    __ldg(w.bt2 + c);
-    const float g = (z_at(w, u, c + C, t, H, T) - mean2) * rstd2 *
-                        __ldg(w.g2 + c + C) + __ldg(w.bt2 + c + C);
-    y[i] += __ldg(w.s + c) * a * sigmoid(g);
-  }
-  __syncthreads();
-}
-
+// y[(b, fo)][c][t] = gelu(bc[c] + sum_ci sum_kf wc[c][ci][kf] x[b][ci][4 fo +
+// kf - 2][t]).  Grid (B * Fo, ntile).
 __global__ void __launch_bounds__(NT)
-henc_kernel(const bf16* __restrict__ x, const float* __restrict__ wc,
-            const float* __restrict__ bc, const float* __restrict__ wr,
-            const float* __restrict__ br, DConvW d0, DConvW d1,
-            bf16* __restrict__ out, int Cin, int F, int T, int C) {
-  extern __shared__ __align__(16) float sm[];
-  const int H = C / 8;
-  float* y = sm;                  // C x T
-  float* u = y + C * T;           // H x T
-  float* red = u + H * T;         // NT / 32
-  const int fo = blockIdx.x, b = blockIdx.y, Fo = F / STRIDE;
-
-  // strided conv along F + bias + GELU
-  for (int i = threadIdx.x; i < C * T; i += NT) {
-    const int co = i / T, t = i % T;
+henc_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ wc,
+                 const float* __restrict__ bc, float* __restrict__ y, int Cin,
+                 int F, int T, int C) {
+  const int r = blockIdx.x, Fo = F / STRIDE, b = r / Fo, fo = r % Fo;
+  const int t0 = blockIdx.y * TT, len = min(TT, T - t0);
+  for (int i = threadIdx.x; i < C * TT; i += NT) {
+    const int co = i / TT, j = i % TT;
+    if (j >= len) continue;
     float acc = __ldg(bc + co);
     for (int ci = 0; ci < Cin; ++ci) {
-      const bf16* xr = x + ((size_t)b * Cin + ci) * F * T + t;
+      const bf16* xr = x + ((size_t)b * Cin + ci) * F * T + t0 + j;
       const float* wk = wc + (co * Cin + ci) * KF;
 #pragma unroll
       for (int kf = 0; kf < KF; ++kf) {
@@ -157,57 +64,78 @@ henc_kernel(const bf16* __restrict__ x, const float* __restrict__ wc,
           acc += __ldg(wk + kf) * __bfloat162float(xr[(size_t)fi * T]);
       }
     }
-    y[i] = gelu(acc);
+    y[((size_t)r * C + co) * T + t0 + j] = dconv::gelu(acc);
+  }
+}
+
+// out[b][c][fo][t] = GLU(wr y + br).  Grid (B * Fo, ntile); the (C x TT)
+// tile of y in shared memory.
+__global__ void __launch_bounds__(NT)
+henc_rewrite_kernel(const float* __restrict__ y,
+                    const float* __restrict__ wr,
+                    const float* __restrict__ br, bf16* __restrict__ out,
+                    int F, int T, int C) {
+  extern __shared__ __align__(16) float ys[];
+  const int r = blockIdx.x, Fo = F / STRIDE, b = r / Fo, fo = r % Fo;
+  const int t0 = blockIdx.y * TT, len = min(TT, T - t0);
+  for (int i = threadIdx.x; i < C * TT; i += NT) {
+    const int c = i / TT, j = i % TT;
+    ys[i] = j < len ? y[((size_t)r * C + c) * T + t0 + j] : 0.0f;
   }
   __syncthreads();
-
-  dconv_block(y, u, red, d0, 1, C, H, T);
-  dconv_block(y, u, red, d1, 2, C, H, T);
-
-  // rewrite 1x1 C -> 2C + GLU
-  for (int i = threadIdx.x; i < C * T; i += NT) {
-    const int c = i / T, t = i % T;
+  for (int i = threadIdx.x; i < C * TT; i += NT) {
+    const int c = i / TT, j = i % TT;
+    if (j >= len) continue;
     float a = __ldg(br + c), g = __ldg(br + c + C);
-    const float* wa = wr + c * C;
-    const float* wg = wr + (c + C) * C;
+    const float* wa = wr + (size_t)c * C;
+    const float* wg = wr + (size_t)(c + C) * C;
     for (int k = 0; k < C; ++k) {
-      const float yv = y[k * T + t];
+      const float yv = ys[k * TT + j];
       a += __ldg(wa + k) * yv;
       g += __ldg(wg + k) * yv;
     }
-    out[(((size_t)b * C + c) * Fo + fo) * T + t] = __float2bfloat16(a * sigmoid(g));
+    out[(((size_t)b * C + c) * Fo + fo) * T + t0 + j] =
+        __float2bfloat16(a * dconv::sigmoid(g));
   }
 }
 
 }  // namespace
 
-extern "C" size_t henc_freq_smem(int C, int T) {
-  return ((size_t)(C + C / 8) * T + NT / 32) * sizeof(float);
+// f32 scratch the caller allocates: y (B * F/4, C, T), u (B * F/4, C/8, T)
+// and part (henc_freq_part_floats).
+extern "C" size_t henc_freq_part_floats(int B, int F, int T) {
+  return dconv::part_floats(B * (F / STRIDE), T);
 }
 
 // x (B, Cin, F, T) bf16 -> out (B, C, F/4, T) bf16 on `stream`.  dw holds
 // the 18 f32 DConv pointers, block 0 then block 1, each in the order
 // w1 (H, C, 3), b1, g1, bt1, w2 (2C, H), b2, g2, bt2, scale.  Returns
-// cudaGetLastError() (0 on success).
+// the first CUDA error (0 on success).
 extern "C" int henc_freq_launch(const void* x, const void* wc, const void* bc,
                                 const void* wr, const void* br,
-                                const void* const* dw, void* out, int B,
-                                int Cin, int F, int T, int C, void* stream) {
+                                const void* const* dw, void* y, void* u,
+                                void* part, void* out, int B, int Cin, int F,
+                                int T, int C, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = henc_freq_smem(C, T);
-  cudaError_t e = cudaFuncSetAttribute(
-      henc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int R = B * (F / STRIDE);
+  const dim3 grid(R, dconv::n_tiles(T));
+  float* yf = static_cast<float*>(y);
+  henc_conv_kernel<<<grid, NT, 0, st>>>(static_cast<const bf16*>(x),
+                                        static_cast<const float*>(wc),
+                                        static_cast<const float*>(bc), yf,
+                                        Cin, F, T, C);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  DConvW d[2];
-  for (int i = 0; i < 2; ++i) {
-    const float* const* p = reinterpret_cast<const float* const*>(dw + 9 * i);
-    d[i] = DConvW{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8]};
-  }
-  const dim3 grid(F / STRIDE, B);
-  henc_kernel<<<grid, NT, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(wc),
-      static_cast<const float*>(bc), static_cast<const float*>(wr),
-      static_cast<const float*>(br), d[0], d[1], static_cast<bf16*>(out), Cin,
-      F, T, C);
+  dconv::BlockW w[2];
+  dconv::unpack(dw, w);
+  e = dconv::run<float, float>(yf, w, yf, static_cast<float*>(u),
+                               static_cast<float*>(part), yf, R, C, T, st);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)C * TT * sizeof(float);
+  e = dconv::allow_smem(henc_rewrite_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  henc_rewrite_kernel<<<grid, NT, smem, st>>>(
+      yf, static_cast<const float*>(wr), static_cast<const float*>(br),
+      static_cast<bf16*>(out), F, T, C);
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models import atht
+from ..ops.select import Kernels, resolve
 from ..text.prompts import STEM_NAMES
 from ..text.tokenizer import default_tokenizer
 from . import chunked
@@ -60,14 +61,15 @@ class Separator:
                  device: str | torch.device = "cuda", tokenizer=None,
                  normalize_text: bool = False,
                  sample_rate: int = SAMPLE_RATE, pretrained: bool = False,
-                 kernels: bool = True):
+                 kernels: Kernels = True):
         """``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the
         host.  ``compute_dtype`` defaults to bf16 on the card and f32 on the
         CPU.  ``pretrained=True`` makes the tokenizer refuse the hash
         fallback, which is meaningless for a pretrained text tower.
-        ``kernels=False`` runs the encoder layer by layer in PyTorch ops
-        instead of the fused kernels: the yardstick the kernels are timed
-        against."""
+        ``kernels`` picks the hand-written kernels (``ops.select``: the
+        default selection, ``"opt_in"``, or ``False`` for the encoder layer
+        by layer in PyTorch ops, the yardstick the kernels are timed
+        against)."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -85,7 +87,7 @@ class Separator:
         self.normalize_text = normalize_text
         self.tokenizer = tokenizer or default_tokenizer(require_real=pretrained)
         self.bucket = "auto"
-        self.kernels = kernels
+        self.kernels = resolve(kernels)
         self._emb_cache: Dict[str, torch.Tensor] = {}
 
     # -- text ---------------------------------------------------------------

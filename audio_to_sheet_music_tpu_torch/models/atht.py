@@ -19,7 +19,11 @@ The reference's quirks are kept, since the head was trained through them:
 
 The model is an ``nn.Module`` with ``htdemucs``, ``clap`` and ``head``
 children whose ``state_dict`` names are the JAX param tree's torch names
-(``convert/jax_params.py``).  It is built frozen (no gradients).
+(``convert/jax_params.py``).  It is built frozen (no gradients); training
+makes the head's parameters trainable (``train/step.py``), and ``forward``
+runs the towers under ``torch.no_grad()`` so only the head records autograd.
+The ``kernels`` argument of the forward pieces is an ``ops.select``
+selection.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..convert import jax_params
 from ..nn import core as L
 from ..nn.attention import MHA
 from ..ops import dsp
+from ..ops.select import Kernels, resolve
 from . import clap_text, htdemucs
 
 MODEL_DIM = 384
@@ -127,9 +132,7 @@ def graft_head(model: AudioTextHTDemucs, path: str | Path = DEFAULT_HEAD
                ) -> AudioTextHTDemucs:
     """Load a head saved by the JAX ``save_params_npz`` (e.g. the committed
     ``artifacts/trained_head.npz``) into ``model.head``, strictly."""
-    state = jax_params.state_dict_from_npz(path, prefix=("head",))
-    model.head.load_state_dict({k[len("head."):]: v for k, v in state.items()},
-                               strict=True)
+    jax_params.load_npz(model.head, path, prefix=("head",))
     return model
 
 
@@ -245,13 +248,15 @@ def encode_text(model: AudioTextHTDemucs, input_ids: torch.Tensor,
 
 def encode_mixture(model: AudioTextHTDemucs, wav: torch.Tensor,
                    compute_dtype: torch.dtype = torch.float32,
-                   kernels: bool = True) -> Dict[str, Any]:
+                   kernels: Kernels = True) -> Dict[str, Any]:
     """Text-independent half of the forward: f32 DSP front end, then the
     frozen encoder in ``compute_dtype``.  Multi-stem separation encodes once
     and reuses this state for every stem."""
-    z, mag, x, xt, mean, std, meant, stdt = htdemucs.normalize_inputs(wav.float())
+    sel = resolve(kernels)
+    z, mag, x, xt, mean, std, meant, stdt = htdemucs.normalize_inputs(
+        wav.float(), sel.stft)
     x_enc, xt_enc, saved, saved_t, lengths, lengths_t = htdemucs.encode(
-        model.htdemucs, x.to(compute_dtype), xt.to(compute_dtype), kernels)
+        model.htdemucs, x.to(compute_dtype), xt.to(compute_dtype), sel)
     return {
         "z": z, "mag": mag, "x_enc": x_enc, "xt_enc": xt_enc,
         "saved": saved, "saved_t": saved_t,
@@ -331,7 +336,25 @@ def apply_head_multi(model: AudioTextHTDemucs, enc: Dict[str, Any],
 def forward_with_text_emb(model: AudioTextHTDemucs, wav: torch.Tensor,
                           text_emb: torch.Tensor,
                           compute_dtype: torch.dtype = torch.float32,
-                          kernels: bool = True) -> torch.Tensor:
+                          kernels: Kernels = True) -> torch.Tensor:
     """(B, 2, T) mixture + (B, 512) text embedding -> (B, 2, T) stem."""
     enc = encode_mixture(model, wav, compute_dtype, kernels)
+    return apply_head(model, enc, text_emb).to(wav.dtype)
+
+
+def forward(model: AudioTextHTDemucs, wav: torch.Tensor,
+            input_ids: torch.Tensor, attention_mask: torch.Tensor,
+            compute_dtype: torch.dtype = torch.float32,
+            kernels: Kernels = True, normalize_text: bool = False
+            ) -> torch.Tensor:
+    """Full forward: mixture + tokenised prompts -> separated stem.
+
+    The frozen towers (text tower and encoder) run under
+    ``torch.no_grad()``, as the JAX package stops their gradients; only the
+    head records autograd, so a loss on the result differentiates the head
+    alone."""
+    with torch.no_grad():
+        text_emb = encode_text(model, input_ids, attention_mask,
+                               normalize_text)
+        enc = encode_mixture(model, wav, compute_dtype, kernels)
     return apply_head(model, enc, text_emb).to(wav.dtype)

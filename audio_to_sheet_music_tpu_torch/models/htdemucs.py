@@ -14,10 +14,14 @@ functions below compute the encode path the serving forward runs:
   (5 layers per branch, self at 0/2/4, cross at 1/3, pre-LN, LayerScale,
   GroupNorm out).
 
-Freq layer 0 goes through ``ops.fused_enc.henc_freq_fused`` and every
-transformer layer through ``ops.fused_attn.layer_tail``, the counterparts of
-the JAX package's default TPU kernels.  ``kernels=False`` computes the same
-layers with per-op PyTorch calls instead; that is the comparison path, not a
+The hand-written kernels a forward runs are chosen by ``kernels`` (see
+``ops.select``), with the JAX package's routing: under the default
+selection freq layer 0 goes through ``ops.fused_enc.henc_freq_fused`` and
+every transformer layer through ``ops.fused_attn.layer_tail``; under
+``"opt_in"`` the attention of every transformer layer goes through
+``ops.fused_attn.attn_block`` and the freq DConv of layers 1-3 through
+``ops.fused_dconv.dconv_rows``.  ``kernels=False`` computes the same layers
+with per-op PyTorch calls instead; that is the comparison path, not a
 substitute: a kernel that cannot take its input raises.
 """
 
@@ -31,7 +35,8 @@ from torch import nn
 
 from ..nn import core as L
 from ..nn.attention import MHA, mha
-from ..ops import dsp, fused_attn, fused_enc
+from ..ops import dsp, fused_attn, fused_dconv, fused_enc
+from ..ops.select import Kernels, KernelSelection, resolve
 
 CHANNELS = [48, 96, 192, 384]
 AUDIO_CHANNELS = 2
@@ -212,19 +217,28 @@ def dconv_apply(dconv: DConv, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _dconv_freq(dconv: DConv, y: torch.Tensor) -> torch.Tensor:
-    """The 1-D DConv along time for every (batch, freq) row."""
+def _dconv_freq(dconv: DConv, y: torch.Tensor,
+                sel: KernelSelection) -> torch.Tensor:
+    """The 1-D DConv along time for every (batch, freq) row; the folded rows
+    go through ``dconv_rows`` under the ``dconv`` selection where the JAX
+    package's test (``fused_dconv.supports``) takes them."""
     b, c, f, t = y.shape
     y = y.permute(0, 2, 1, 3).reshape(b * f, c, t)
-    y = dconv_apply(dconv, y)
+    if sel.dconv and fused_dconv.supports(b * f, t, c):
+        y = fused_dconv.dconv_rows(dconv, y.contiguous())
+    else:
+        y = dconv_apply(dconv, y)
     return y.reshape(b, f, c, t).permute(0, 2, 1, 3)
 
 
 def henc_layer_apply(layer: HEncLayer, x: torch.Tensor,
-                     kernels: bool = True) -> torch.Tensor:
+                     kernels: Kernels = True) -> torch.Tensor:
     """HEncLayer: strided conv -> GELU -> DConv -> rewrite + GLU."""
+    sel = resolve(kernels)
     if layer.freq:
-        if kernels and fused_enc.profitable(x.shape[1]):
+        cin, cout = x.shape[1], layer.conv.weight.shape[0]
+        if (sel.enc and fused_enc.profitable(cin)
+                and fused_enc.supports(cin, cout, x.shape[2], x.shape[3])):
             return fused_enc.henc_freq_fused(layer, x)
         y = L.conv2d(layer.conv, x, stride=(STRIDE, 1), padding=(KERNEL // 4, 0))
     else:
@@ -234,7 +248,7 @@ def henc_layer_apply(layer: HEncLayer, x: torch.Tensor,
         y = L.conv1d(layer.conv, x, stride=STRIDE, padding=KERNEL // 4)
     y = L.gelu(y)
     if layer.freq:
-        y = _dconv_freq(layer.dconv, y)
+        y = _dconv_freq(layer.dconv, y, sel)
         z = L.conv2d(layer.rewrite, y)
     else:
         y = dconv_apply(layer.dconv, y)
@@ -295,37 +309,51 @@ def _ff(layer: TransformerLayer, x: torch.Tensor) -> torch.Tensor:
     return L.linear(layer.linear2, L.gelu(L.linear(layer.linear1, x)))
 
 
+def _attn_residual(layer: TransformerLayer, x_res: torch.Tensor,
+                   q_in: torch.Tensor, kv_in: torch.Tensor,
+                   sel: KernelSelection) -> torch.Tensor:
+    """``x_res + LayerScale(MHA(q_in, kv_in, kv_in))``, per op or through
+    ``attn_block`` under the ``attn`` selection (JAX ``_attn_residual``)."""
+    heads = _n_heads(x_res.shape[-1])
+    if sel.attn and fused_attn.supports_block(x_res.shape[-1], heads):
+        return fused_attn.mha_residual(layer.attn, layer.gamma_1, x_res, q_in,
+                                       kv_in, heads)
+    return x_res + L.layer_scale(layer.gamma_1,
+                                 mha(layer.attn, q_in, kv_in, kv_in, heads),
+                                 channel_last=True)
+
+
 def _self_layer_apply(layer: TransformerLayer, x: torch.Tensor,
-                      kernels: bool) -> torch.Tensor:
+                      kernels: Kernels) -> torch.Tensor:
+    sel = resolve(kernels)
     heads = _n_heads(x.shape[-1])
-    if kernels:
+    if sel.layer:
         y = fused_attn.fused_self_layer(layer, x, heads)
         return _group_norm_tokens(layer.norm_out, y)
     h = L.layer_norm(layer.norm1, x)
-    x = x + L.layer_scale(layer.gamma_1, mha(layer.self_attn, h, h, h, heads),
-                          channel_last=True)
+    x = _attn_residual(layer, x, h, h, sel)
     x = x + L.layer_scale(layer.gamma_2, _ff(layer, L.layer_norm(layer.norm2, x)),
                           channel_last=True)
     return _group_norm_tokens(layer.norm_out, x)
 
 
 def _cross_layer_apply(layer: TransformerLayer, q: torch.Tensor,
-                       mem: torch.Tensor, kernels: bool) -> torch.Tensor:
+                       mem: torch.Tensor, kernels: Kernels) -> torch.Tensor:
+    sel = resolve(kernels)
     heads = _n_heads(q.shape[-1])
-    if kernels:
+    if sel.layer:
         y = fused_attn.fused_cross_layer(layer, q, mem, heads)
         return _group_norm_tokens(layer.norm_out, y)
     qn = L.layer_norm(layer.norm1, q)
     mn = L.layer_norm(layer.norm2, mem)
-    x = q + L.layer_scale(layer.gamma_1, mha(layer.cross_attn, qn, mn, mn, heads),
-                          channel_last=True)
+    x = _attn_residual(layer, q, qn, mn, sel)
     x = x + L.layer_scale(layer.gamma_2, _ff(layer, L.layer_norm(layer.norm3, x)),
                           channel_last=True)
     return _group_norm_tokens(layer.norm_out, x)
 
 
 def crosstransformer_apply(ct: CrossTransformer, x: torch.Tensor,
-                           xt: torch.Tensor, kernels: bool = True
+                           xt: torch.Tensor, kernels: Kernels = True
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, C, Fr, T1) freq branch; xt: (B, C, T2) time branch.
 
@@ -363,10 +391,12 @@ def crosstransformer_apply(ct: CrossTransformer, x: torch.Tensor,
 # Front end and encode
 # ---------------------------------------------------------------------------
 
-def normalize_inputs(mix: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def normalize_inputs(mix: torch.Tensor, stft_kernel: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
     """Spectral + waveform normalisation; std is unbiased (ddof=1), as in
-    the reference.  Returns ``(z, mag, x, xt, mean, std, meant, stdt)``."""
-    z = dsp.spec(mix, NFFT, HOP)                      # (B, 2, 2048, T) complex
+    the reference.  Returns ``(z, mag, x, xt, mean, std, meant, stdt)``.
+    ``stft_kernel`` sends the STFT through ``ops.fused_stft``."""
+    z = dsp.spec(mix, NFFT, HOP, stft_kernel)         # (B, 2, 2048, T) complex
     mag = dsp.magnitude_cac(z)                        # (B, 4, 2048, T)
     mean = mag.mean(dim=(1, 2, 3), keepdim=True)
     std = mag.std(dim=(1, 2, 3), keepdim=True)
@@ -379,7 +409,7 @@ def normalize_inputs(mix: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def encode(ht: HTDemucs, x: torch.Tensor, xt: torch.Tensor,
-           kernels: bool = True
+           kernels: Kernels = True
            ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor],
                       List[torch.Tensor], List[int], List[int]]:
     """x: (B, 4, 2048, T) normalised CaC spectrogram; xt: (B, 2, T) waveform.
@@ -387,6 +417,7 @@ def encode(ht: HTDemucs, x: torch.Tensor, xt: torch.Tensor,
     Returns the bottleneck after the cross-transformer plus per-layer skips
     and lengths for the decoders.
     """
+    kernels = resolve(kernels)
     saved, saved_t, lengths, lengths_t = [], [], [], []
     for idx in range(len(ht.encoder)):
         lengths.append(x.shape[-1])

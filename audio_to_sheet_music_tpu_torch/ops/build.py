@@ -3,9 +3,9 @@
 Each source under ``csrc/`` compiles on its own, with ``nvcc -gencode
 arch=compute_90a,code=sm_90a``, into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  Libraries go to
-``build/kernels/`` at the repository root, named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads the
-library already there.  ``build_all`` starts one ``nvcc`` per source
+``build/kernels/`` at the repository root, named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads the library already there.  ``build_all`` starts one ``nvcc`` per source
 together and waits for all of them.
 
 Nothing here runs at import: ``nvcc`` is only called when a kernel is
@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
@@ -48,9 +50,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -108,3 +111,20 @@ def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise if autograd would record through a kernel: no kernel has a
+    backward (none of the JAX package's Pallas kernels has one either)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: a kernel input requires grad, and the "
+                           "kernel has no backward; run it under "
+                           "torch.no_grad() or take the per-op path")
+
+
+def f32(t, device, what: str):
+    """A weight as a contiguous f32 tensor on ``device`` (no autograd)."""
+    if t.device != device:
+        raise ValueError(f"{what}: a weight is on {t.device}, x on {device}")
+    return t.detach().float().contiguous()

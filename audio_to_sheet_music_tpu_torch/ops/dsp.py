@@ -10,8 +10,11 @@
 
 The JAX package lowers the DFT as matmuls for the TPU; here ``torch.stft`` /
 ``torch.istft`` (cuFFT on the card) compute the same transforms, checked
-on outputs.  The STFT always runs in f32, whatever the model's compute
-dtype, as it does in the JAX package.
+on outputs.  Under the ``stft`` kernel selection the forward STFT runs the
+hand-written kernel ``ops.fused_stft.stft`` instead (the JAX package's
+``ATSM_PALLAS_STFT=1`` route), around the same padding and scale.  The STFT
+always runs in f32, whatever the model's compute dtype, as it does in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from . import fused_stft
 
 
 def pad_reflect_safe(x: torch.Tensor, pad_left: int, pad_right: int
@@ -47,13 +52,22 @@ def _window(n_fft: int, device) -> torch.Tensor:
                              device=device)
 
 
-def stft(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024) -> torch.Tensor:
-    """Centred, normalised STFT: ``(..., T)`` -> complex ``(..., F, frames)``."""
+def stft(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,
+         kernel: bool = False) -> torch.Tensor:
+    """Centred, normalised STFT: ``(..., T)`` -> complex ``(..., F, frames)``.
+    ``kernel=True`` runs ``fused_stft.stft`` where ``fused_stft.supports``
+    the geometry (the JAX routing test)."""
+    n_frames = x.shape[-1] // hop + 1
     xp = pad_reflect_safe(x.float(), n_fft // 2, n_fft // 2)
     lead = xp.shape[:-1]
-    z = torch.stft(xp.reshape(-1, xp.shape[-1]), n_fft, hop,
-                   window=_window(n_fft, x.device), win_length=n_fft,
-                   center=False, normalized=True, return_complex=True)
+    flat = xp.reshape(-1, xp.shape[-1])
+    if kernel and fused_stft.supports(n_fft, hop):
+        z = fused_stft.stft(flat.contiguous(), n_fft, hop, n_frames)
+        z = z * (1.0 / math.sqrt(n_fft))
+    else:
+        z = torch.stft(flat, n_fft, hop, window=_window(n_fft, x.device),
+                       win_length=n_fft, center=False, normalized=True,
+                       return_complex=True)
     return z.reshape(*lead, *z.shape[-2:])
 
 
@@ -67,13 +81,14 @@ def istft(z: torch.Tensor, length: int, n_fft: int = 4096,
     return x.reshape(*lead, x.shape[-1])
 
 
-def spec(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024) -> torch.Tensor:
+def spec(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,
+         kernel: bool = False) -> torch.Tensor:
     """demucs ``HTDemucs._spec``: ``(..., T) -> complex (..., n_fft//2, le)``."""
     length = x.shape[-1]
     le = int(math.ceil(length / hop))
     pad = hop // 2 * 3
     x = pad_reflect_safe(x.float(), pad, pad + le * hop - length)
-    z = stft(x, n_fft, hop)
+    z = stft(x, n_fft, hop, kernel)
     return z[..., :-1, 2:2 + le]
 
 

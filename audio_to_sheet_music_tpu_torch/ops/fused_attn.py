@@ -1,5 +1,5 @@
-"""Fused transformer layer tail: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Fused transformer layer tail and attention block: the hand-written Hopper
+kernels and their plain PyTorch versions.
 
 Counterpart of ``audio_to_sheet_music_tpu/ops/pallas_attn.py:layer_tail``
 (Pallas body ``_layer_kernel``), which runs every self and cross layer of the
@@ -20,6 +20,16 @@ the GroupNorm-out stay outside, as in the JAX package.
   LayerNorm statistics and residual stream).
 - ``fused_self_layer`` / ``fused_cross_layer``: project K/V and call
   ``layer_tail`` from a layer module's parameters.
+
+Counterpart of ``pallas_attn.attn_block`` (Pallas body ``_attn_kernel``),
+the opt-in kernel the JAX package runs when the whole-layer kernel is off:
+``attn_block`` computes ``x + γ·(softmax(q kᵀ/√64)·v·Woᵀ + bo)`` per query
+row over projected q, k, v (``csrc/attn_block.cu``: the flash-attention
+launch and the out-projection GEMM of ``csrc/attn_common.cuh``, which
+``layer_tail`` uses too).  ``attn_block_plain`` is its plain version and
+``mha_residual`` projects Q/K/V (torch matmuls, as the JAX package leaves
+them to XLA) and calls it from an attention module's parameters.
+``attn_block.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -68,19 +78,39 @@ def layer_tail_plain(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2,
     return y2.to(dt)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device
-           ) -> None:
+def attn_block_plain(q, k, v, x, wo, bo, gamma, num_heads: int
+                     ) -> torch.Tensor:
+    """The attention block in plain PyTorch ops; same contract as
+    ``attn_block``.  Rounds to the input dtype where the Pallas kernel does:
+    the softmax probabilities and the concatenated heads."""
+    dt = q.dtype
+    b, l, d = q.shape
+    dh = d // num_heads
+    qh = q.reshape(b, l, num_heads, dh).transpose(1, 2)
+    kh = k.reshape(b, -1, num_heads, dh).transpose(1, 2)
+    vh = v.reshape(b, -1, num_heads, dh).transpose(1, 2)
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(dh)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    attn = torch.matmul(probs.float(), vh.float())
+    attn = attn.transpose(1, 2).reshape(b, l, d).to(dt)
+    out = x.float() + gamma.float() * (_mm(attn, wo, dt) + bo.float())
+    return out.to(dt)
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device,
+           what: str = "layer_tail") -> None:
     if t.device != device:
-        raise ValueError(f"layer_tail: {name} is on {t.device}, h on {device}")
+        raise ValueError(f"{what}: {name} is on {t.device}, the input on "
+                         f"{device}")
     if t.dtype != dtype:
-        raise TypeError(f"layer_tail: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"layer_tail: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"layer_tail: {name} must be contiguous")
+        raise ValueError(f"{what}: {name} must be contiguous")
     if t.data_ptr() % 32:
-        raise ValueError(f"layer_tail: {name} must be 32-byte aligned")
+        raise ValueError(f"{what}: {name} must be 32-byte aligned")
 
 
 def supports(d: int, num_heads: int, ff: int) -> bool:
@@ -88,6 +118,13 @@ def supports(d: int, num_heads: int, ff: int) -> bool:
     tiles, D within one warp's LayerNorm registers."""
     return (num_heads * _HEAD_DIM == d and d % _TILE == 0 and d <= _MAX_D
             and ff % _TILE == 0)
+
+
+def supports_block(d: int, num_heads: int) -> bool:
+    """The shapes the JAX package sends to ``attn_block``
+    (``pallas_attn.supports``); the model routes by the same test.  The CUDA
+    kernel also needs 64-wide heads and raises on other widths."""
+    return d % 128 == 0 and d % num_heads == 0 and d // num_heads >= 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -125,6 +162,8 @@ def layer_tail(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2, b2, g2,
                          f"FF={ff}")
     if l < 1 or s < 1:
         raise ValueError("layer_tail: empty query or key sequence")
+    build.check_no_grad("layer_tail", h, k, v, x, wq, bq, wo, bo, g1, lnw,
+                        lnb, w1, b1, w2, b2, g2)
     bf, f32, dev = torch.bfloat16, torch.float32, h.device
     for name, t, dt, shape in (
             ("h", h, bf, (bsz, l, d)), ("x", x, bf, (bsz, l, d)),
@@ -152,6 +191,76 @@ def layer_tail(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2, b2, g2,
 
 
 layer_tail.launches = 0
+
+
+def _block_lib() -> ctypes.CDLL:
+    lib = build.load("attn_block")
+    if not getattr(lib, "_bound", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attn_block_launch.argtypes = [p] * 9 + [i] * 4 + [f, p]
+        lib.attn_block_launch.restype = i
+        lib._bound = True
+    return lib
+
+
+def attn_block(q, k, v, x, wo, bo, gamma, num_heads: int) -> torch.Tensor:
+    """``x + γ·(softmax(q kᵀ/√dh)·v·Woᵀ + bo)`` per head -> (B, L, D).
+
+    q, x: (B, L, D); k, v: (B, S, D), already projected; wo (D, D) in torch
+    layout; bo, gamma (D,).  CPU tensors take ``attn_block_plain``.  CUDA
+    tensors launch the kernel: activations and ``wo`` bf16, vectors f32,
+    all contiguous, 64-wide heads, nothing requiring grad, else this raises.
+    """
+    if q.device.type == "cpu":
+        return attn_block_plain(q, k, v, x, wo, bo, gamma, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"attn_block: no kernel for device {q.device}")
+    bsz, l, d = q.shape
+    s = k.shape[1]
+    if num_heads * _HEAD_DIM != d or d % _TILE:
+        raise ValueError(f"attn_block: unsupported D={d}, heads={num_heads}")
+    if l < 1 or s < 1:
+        raise ValueError("attn_block: empty query or key sequence")
+    build.check_no_grad("attn_block", q, k, v, x, wo, bo, gamma)
+    bf, f32, dev = torch.bfloat16, torch.float32, q.device
+    for name, t, dt, shape in (
+            ("q", q, bf, (bsz, l, d)), ("x", x, bf, (bsz, l, d)),
+            ("k", k, bf, (bsz, s, d)), ("v", v, bf, (bsz, s, d)),
+            ("wo", wo, bf, (d, d)), ("bo", bo, f32, (d,)),
+            ("gamma", gamma, f32, (d,))):
+        _check(name, t, dt, shape, dev, "attn_block")
+    a = torch.empty_like(q)
+    out = torch.empty_like(q)
+    err = _block_lib().attn_block_launch(
+        *(t.data_ptr() for t in (q, k, v, x, wo, bo, gamma, a, out)),
+        bsz, l, s, d, 1.0 / math.sqrt(d // num_heads),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "attn_block")
+    attn_block.launches += 1
+    return out
+
+
+attn_block.launches = 0
+
+
+def mha_residual(attn, gamma, x_res: torch.Tensor, q_in: torch.Tensor,
+                 kv_in: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``x_res + LayerScale(MHA(q_in, kv_in, kv_in))`` through
+    ``attn_block``.  ``attn`` is an ``nn.attention.MHA`` (packed in-proj),
+    ``gamma`` a ``LayerScale``; ``q_in`` / ``kv_in`` are the normed token
+    streams.  The projections are torch matmuls in the stream's dtype."""
+    dt = q_in.dtype
+    e = q_in.shape[-1]
+    w = attn.in_proj_weight.to(dt)
+    bias = attn.in_proj_bias.to(dt)
+    lin = torch.nn.functional.linear
+    q = lin(q_in, w[:e], bias[:e])
+    k = lin(kv_in, w[e:2 * e], bias[e:2 * e])
+    v = lin(kv_in, w[2 * e:], bias[2 * e:])
+    return attn_block(q.contiguous(), k.contiguous(), v.contiguous(),
+                      x_res.contiguous(), attn.out_proj.weight.to(dt).contiguous(),
+                      attn.out_proj.bias.float().contiguous(),
+                      gamma.scale.float().contiguous(), num_heads)
 
 
 def _tail_from_layer(layer, attn, ln, x_res, h_q, kv, num_heads: int):

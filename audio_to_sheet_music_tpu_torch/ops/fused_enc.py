@@ -18,7 +18,8 @@ henc_freq_fused`` (Pallas body ``_kernel``, with the DConv math of
   ``henc_freq_plain``.  ``henc_freq_fused.launches`` counts kernel launches.
 - ``henc_freq_plain``: the same function in PyTorch ops, computed in f32
   like the kernel (bf16 in, f32 inside, input dtype out).
-- ``profitable``: the layers the model sends here.
+- ``profitable`` and ``supports``: the layers and shapes the model sends
+  here, the JAX package's tests.
 """
 
 from __future__ import annotations
@@ -29,12 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .fused_dconv import block_weights, dconv_rows_plain
 
 KERNEL = 8
 STRIDE = 4
 PAD = 2
 EPS = 1e-5
-_SMEM_MAX = 232448          # bytes of shared memory one Hopper block may use
 
 
 def profitable(cin: int) -> bool:
@@ -44,17 +45,23 @@ def profitable(cin: int) -> bool:
     return cin <= 4
 
 
-def _smem_bytes(c: int, t: int) -> int:
-    return ((c + c // 8) * t + 8) * 4
+def _freq_block(nb_out: int, t: int, cin: int, cout: int) -> int | None:
+    """The JAX kernel's VMEM frequency block (``pallas_enc._freq_block``)."""
+    tp = -(-t // 128) * 128
+    for fb in (64, 32, 16, 8, 4, 2, 1):
+        if nb_out % fb == 0 and (22 * cout + 32 * cin) * fb * tp <= 14 * 2 ** 20:
+            return fb
+    return None
 
 
 def supports(cin: int, cout: int, f: int, t: int) -> bool:
-    """Shapes the CUDA kernel takes: F on the stride-4 grid, a whole DConv
-    hidden width C/8, and one (C + C/8, T) f32 row in shared memory.  At
-    layer 0 (C = 48) that is T <= 1076 frames: chunks of up to ~25 s.
-    Longer chunks are refused on the card, not sent elsewhere."""
-    return (f % STRIDE == 0 and f >= STRIDE and cout % 8 == 0 and cin >= 1
-            and t >= 1 and _smem_bytes(cout, t) <= _SMEM_MAX)
+    """The shapes the JAX package sends to its kernel
+    (``pallas_enc.supports``): F on the stride-4 grid, a whole DConv hidden
+    width C/8, one frequency block within its VMEM budget (at layer 0 that is
+    T up to ~12.6k frames, ~290 s chunks).  The model routes by the same
+    test; the CUDA kernel itself takes any T."""
+    return (f % STRIDE == 0 and f >= STRIDE and cout % 8 == 0
+            and _freq_block(f // STRIDE, t, cin, cout) is not None)
 
 
 def henc_freq_plain(layer, x: torch.Tensor) -> torch.Tensor:
@@ -63,17 +70,7 @@ def henc_freq_plain(layer, x: torch.Tensor) -> torch.Tensor:
     y = F.gelu(F.conv2d(xf, layer.conv.weight.float(), layer.conv.bias.float(),
                         stride=(STRIDE, 1), padding=(PAD, 0)))
     b, c, f, t = y.shape
-    r = y.permute(0, 2, 1, 3).reshape(b * f, c, t)
-    for d, blk in enumerate(layer.dconv.layers):
-        dil = 2 ** d
-        z = F.conv1d(r, blk.conv1.weight.float(), blk.conv1.bias.float(),
-                     padding=dil, dilation=dil)
-        z = F.gelu(F.group_norm(z, 1, blk.norm1.weight.float(),
-                                blk.norm1.bias.float(), EPS))
-        z = F.conv1d(z, blk.conv2.weight.float(), blk.conv2.bias.float())
-        z = F.glu(F.group_norm(z, 1, blk.norm2.weight.float(),
-                               blk.norm2.bias.float(), EPS), dim=1)
-        r = r + blk.scale.scale.float()[:, None] * z
+    r = dconv_rows_plain(layer.dconv, y.permute(0, 2, 1, 3).reshape(b * f, c, t))
     y = r.reshape(b, f, c, t).permute(0, 2, 1, 3)
     z = F.conv2d(y, layer.rewrite.weight.float(), layer.rewrite.bias.float())
     return F.glu(z, dim=1).to(x.dtype)
@@ -83,30 +80,31 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("henc_freq")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.henc_freq_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.henc_freq_launch.argtypes = [p] * 10 + [i] * 5 + [p]
         lib.henc_freq_launch.restype = i
+        lib.henc_freq_part_floats.argtypes = [i, i, i]
+        lib.henc_freq_part_floats.restype = ctypes.c_size_t
         lib._bound = True
     return lib
-
-
-def _f32(t: torch.Tensor, device) -> torch.Tensor:
-    t = t.detach()
-    if t.device != device:
-        raise ValueError(f"henc_freq_fused: weight on {t.device}, x on {device}")
-    return t.float().contiguous()
 
 
 def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
     """Fused frequency HEncLayer ``(B, Cin, F, T) -> (B, C, F/4, T)``.
 
     ``layer`` is a ``models.htdemucs.HEncLayer`` with ``freq=True``.  CPU
-    tensors take ``henc_freq_plain``.  A CUDA ``x`` must be bf16 and
-    contiguous with a shape ``supports`` accepts, else this raises.
+    tensors take ``henc_freq_plain``.  A CUDA ``x`` must be a contiguous
+    bf16 ``(B, Cin, F, T)`` with F on the stride-4 grid and C a multiple of
+    8 (any T), and nothing may require grad (there is no backward kernel),
+    else this raises.
     """
     if x.device.type == "cpu":
         return henc_freq_plain(layer, x)
     if x.device.type != "cuda":
         raise ValueError(f"henc_freq_fused: no kernel for device {x.device}")
+    dconv_w = block_weights(layer.dconv)
+    top_w = [layer.conv.weight, layer.conv.bias, layer.rewrite.weight,
+             layer.rewrite.bias]
+    build.check_no_grad("henc_freq_fused", x, *top_w, *dconv_w)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"henc_freq_fused: x must be bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
@@ -116,28 +114,25 @@ def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
     if tuple(layer.conv.weight.shape) != (c, cin, KERNEL, 1):
         raise ValueError(f"henc_freq_fused: conv weight "
                          f"{tuple(layer.conv.weight.shape)} for Cin={cin}")
-    if not supports(cin, c, f, t):
+    if f % STRIDE or f < STRIDE or c % 8 or t < 1 or len(dconv_w) != 18:
         raise ValueError(f"henc_freq_fused: unsupported shape {(b, cin, f, t)} "
                          f"-> C={c}")
     dev = x.device
-    weights = [_f32(layer.conv.weight, dev), _f32(layer.conv.bias, dev),
-               _f32(layer.rewrite.weight, dev), _f32(layer.rewrite.bias, dev)]
-    dw = []
-    for blk in layer.dconv.layers:
-        dw += [_f32(blk.conv1.weight, dev), _f32(blk.conv1.bias, dev),
-               _f32(blk.norm1.weight, dev), _f32(blk.norm1.bias, dev),
-               _f32(blk.conv2.weight, dev), _f32(blk.conv2.bias, dev),
-               _f32(blk.norm2.weight, dev), _f32(blk.norm2.bias, dev),
-               _f32(blk.scale.scale, dev)]
-    if len(dw) != 18:
-        raise ValueError("henc_freq_fused: the kernel takes 2 DConv blocks")
+    weights = [build.f32(w, dev, "henc_freq_fused") for w in top_w]
+    dw = [build.f32(w, dev, "henc_freq_fused") for w in dconv_w]
     dw_ptrs = (ctypes.c_void_p * 18)(*(w.data_ptr() for w in dw))
+    lib = _lib()
+    rows = b * (f // STRIDE)
+    y = torch.empty((rows, c, t), dtype=torch.float32, device=dev)
+    u = torch.empty((rows, c // 8, t), dtype=torch.float32, device=dev)
+    part = torch.empty((lib.henc_freq_part_floats(b, f, t),),
+                       dtype=torch.float32, device=dev)
     out = torch.empty((b, c, f // STRIDE, t), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().henc_freq_launch(
+    err = lib.henc_freq_launch(
         x.data_ptr(), *(w.data_ptr() for w in weights),
-        ctypes.cast(dw_ptrs, ctypes.c_void_p), out.data_ptr(),
-        b, cin, f, t, c, stream)
+        ctypes.cast(dw_ptrs, ctypes.c_void_p), y.data_ptr(), u.data_ptr(),
+        part.data_ptr(), out.data_ptr(), b, cin, f, t, c, stream)
     build.check(err, "henc_freq_fused")
     henc_freq_fused.launches += 1
     return out

@@ -5,17 +5,21 @@
 
 Phases, in order; a failed phase exits non-zero and prints no result:
 
-1. Preflight: the card's name and power limit (``nvidia-smi``), then both
-   kernels built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/csrc``,
-   one process per source, all at once.
-2. Kernels against their plain PyTorch versions, in bf16 at the serving
-   path's shapes: ``layer_tail`` in its four forms for one group of four
-   6 s chunks (freq self 2072/2072, time self 1034/1034, freq cross
-   2072/1034, time cross 1034/2072) plus a ragged 1000/777, and
-   ``henc_freq_fused`` at (4, 4, 2048, 259).  Each prints its max and rms
-   error against the stated tolerance, and CUDA-event times for the kernel,
-   the plain version and a composition of PyTorch library calls computing
-   the same function.
+1. Preflight: the card's name and power limit (``nvidia-smi``), then all
+   five kernels built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
+   csrc``, one process per source, all at once.
+2. Kernels against their plain PyTorch versions, at the shapes their path
+   gives them: ``layer_tail`` in its four forms for one group of four 6 s
+   serving chunks (freq self 2072/2072, time self 1034/1034, freq cross
+   2072/1034, time cross 1034/2072) plus a ragged 1000/777;
+   ``henc_freq_fused`` at (4, 4, 2048, 259) and at a 30 s chunk (T = 1292,
+   past the first design's limit of 1076); and for a training batch of
+   8 x 6 s, ``dconv_rows`` at freq layers 1-3 (1024 x 96, 256 x 192,
+   64 x 384 rows by 259 frames), ``attn_block`` in the four forms at B = 8
+   plus a ragged one, and the STFT kernel at (16, 272384).  Each prints its
+   max and rms error against the stated tolerance, and CUDA-event times for
+   the kernel, the plain version and a PyTorch library call (or
+   composition) computing the same function.
 3. The full path: the full-width model (the port's seeded init, seed 0, with
    the committed trained head grafted on) in a ``Separator`` on ``cuda``
    with bf16 compute serves a seeded 60 s stereo song, all 4 stems, through
@@ -23,22 +27,38 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    counters set to 0 just before and read just after.  Then one 6 s chunk
    goes through ``forward_with_text_emb`` with the kernels and with the
    per-op path; their rms difference must be below 1e-3.
+4. Training: the same full-width model (seeded init + trained head) trains
+   its head with ``train.trainer.train`` on synthetic tracks written to a
+   temporary directory (batch 8 x 6 s, bf16, the CLAP text tower every
+   step, one epoch of a few steps, a validation pass, checkpoints) under the
+   opt-in kernels, with every launch counter set to 0 just before and read
+   just after; then a resume from the checkpoint.  It checks the loss is
+   finite, the towers' parameters are unchanged, the resumed head equals the
+   saved one, the opt-in 6 s forward is within 1e-3 rms of the per-op one,
+   and the opt-in loss equals the per-op loss on one batch within what that
+   threshold allows; then times warm train steps under the opt-in, default
+   and per-op selections.
 
 ``python3 chip_smoke.py --profile`` adds, after phase 3, one more
 ``separate_all_pcm`` under ``torch.profiler`` (device time by kernel group
 and the device's busy share) and one timed sweep on the per-op path
-(``Separator(kernels=False)``), the rate the kernels have to beat.
+(``Separator(kernels=False)``), the rate the kernels have to beat; and in
+phase 4 one opt-in train step under the profiler.
 
 The last three lines of standard output are the card (as ``nvidia-smi``
-prints it), one JSON object with the numbers of every kernel on the path,
-and ``{"ok": true, "device": {...}}``.  The same numbers, with each layer
-form's (and the profile, when asked), are written to
+prints it), one JSON object with the numbers of every kernel (``launches``
+from the path that runs it: the serving sweep for ``layer_tail`` and
+``henc_freq_fused``, the training run for the other three), and
+``{"ok": true, "device": {...}}``.  The same numbers, with each form's and
+the training phase's (and the profile, when asked), are written to
 ``build/chip_smoke.json``.
 
 Rates for the bounds are the H100 SXM data sheet's dense peaks: 989 TFLOP/s
-bf16 on the tensor cores and 3.35 TB/s of memory.  Both kernels take bf16 in
-and give bf16 out, so their operations are priced at the bf16 tensor rate,
-whatever units the kernel itself uses.
+bf16 on the tensor cores, 67 TFLOP/s f32 outside them, and 3.35 TB/s of
+memory.  The kernels that take bf16 in and give bf16 out have their
+operations priced at the bf16 tensor rate, whatever units the kernel itself
+uses; the f32 STFT at the f32 rate, counting an FFT's 2.5 N log2 N
+operations a frame.
 """
 
 from __future__ import annotations
@@ -55,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
 MEMORY_BYTES_PER_S = 3.35e12
 SEED = 0
 SAMPLE_RATE = 44100
@@ -63,10 +84,17 @@ CHUNK_SECONDS = 6.0
 PATH_RMS_LIMIT = 1e-3      # the JAX package's kernel gate threshold
 D, FF, HEADS = 512, 2048, 8
 
-# layer_tail forms in one group program of 4 chunks: (name, L, S, launches)
+# layer_tail forms in one group program of 4 chunks: (name, L, S, launches);
+# attn_block takes the same forms once per train step of batch TRAIN_B
 LAYER_FORMS = [("freq_self", 2072, 2072, 3), ("time_self", 1034, 1034, 3),
                ("freq_cross", 2072, 1034, 2), ("time_cross", 1034, 2072, 2)]
 RAGGED = ("ragged", 1000, 777, 0)
+TRAIN_B = 8
+TRAIN_T = 259                      # spectrogram frames of a 6 s segment
+# dconv_rows at freq encoder layers 1-3 of a training batch: (rows, C)
+DCONV_FORMS = [(TRAIN_B * 128, 96), (TRAIN_B * 32, 192), (TRAIN_B * 8, 384)]
+# the STFT of a training batch: 2 x 8 rows, 6 s padded for 263 frames
+STFT_ROWS, STFT_T, NFFT, HOP, STFT_FRAMES = 2 * TRAIN_B, 272384, 4096, 1024, 263
 
 # bf16 outputs: one step is 2^-8 of the value.
 LAYER_TOL = {"max_rel": 4 * 2.0 ** -8, "rms_rel": 2.0 ** -8, "reason": (
@@ -77,6 +105,10 @@ LAYER_TOL = {"max_rel": 4 * 2.0 ** -8, "rms_rel": 2.0 ** -8, "reason": (
 HENC_TOL = {"max_rel": 2 * 2.0 ** -8, "rms_rel": 2.0 ** -9, "reason": (
     "2 bf16 steps of max|ref|, 1/2 of rms(ref): both work in f32 end to end; "
     "only the f32 summation order and the final bf16 rounding differ")}
+STFT_TOL = {"max_rel": 1e-4, "rms_rel": 1e-5, "reason": (
+    "1e-4 of max|ref|, 1e-5 of rms(ref): both are f32 FFTs (radix-2 here, "
+    "cuFFT in the plain version), whose rounding grows as eps x log2 N; 27x "
+    "below the 2.7e-3 that made the JAX kernel refuse bf16 passes")}
 
 
 class SmokeFailure(RuntimeError):
@@ -133,6 +165,12 @@ def bound(flops: float, nbytes: float, flop_rate: float) -> dict:
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def _print_times(row: dict) -> None:
+    print(f"    ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.4f}  "
+          f"library_ms {row['library_ms']:.4f}  bound_ms "
+          f"{row['bound_ms']:.4f} ({row['bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -203,40 +241,21 @@ def check_layer_tail(gen: torch.Generator, b: int = 4) -> dict:
                        iters),
                    "library_ms": cuda_ms(lambda: _layer_library(*args), iters),
                    **bound(*_layer_work(b, l, s), BF16_TENSOR_FLOPS)}
-        print(f"    ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.4f}  "
-              f"library_ms {row['library_ms']:.4f}  bound_ms "
-              f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        _print_times(row)
         forms.append(row)
-    # one entry per kernel: means per launch over one group program's mix
-    group = [f for f in forms if f["launches_per_group"]]
-    n = sum(f["launches_per_group"] for f in group)
-    mean = lambda k: sum(f[k] * f["launches_per_group"] for f in group) / n  # noqa: E731
-    t_ops = mean("flops") / BF16_TENSOR_FLOPS * 1e3
-    t_bytes = mean("bytes") / MEMORY_BYTES_PER_S * 1e3
-    return {"name": "layer_tail", "route": "cuda",
-            "source": "audio_to_sheet_music_tpu_torch/csrc/layer_tail.cu",
-            "replaces": "audio_to_sheet_music_tpu/ops/pallas_attn.py:268",
-            "launches": 0,
-            "max_abs_err": max(f["max_abs_err"] for f in forms),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": mean("library_ms"),
-            "per": "mean per launch over one group program's 10 launches",
-            "forms": forms}
+    return _kernel_entry(
+        "layer_tail", "audio_to_sheet_music_tpu_torch/csrc/layer_tail.cu",
+        "audio_to_sheet_music_tpu/ops/pallas_attn.py:269", forms,
+        "launches_per_group", BF16_TENSOR_FLOPS,
+        "mean per launch over one group program's 10 launches")
 
 
-def check_henc(gen: torch.Generator) -> dict:
+def _henc_form(layer, b: int, t: int, per_group: int,
+               gen: torch.Generator) -> dict:
     from audio_to_sheet_music_tpu_torch.models import htdemucs
     from audio_to_sheet_music_tpu_torch.ops import fused_enc
 
-    b, cin, f, t, c = 4, 4, 2048, 259, 48
-    print(f"henc_freq_fused ({b}, {cin}, {f}, {t}) -> C={c}, bf16:")
-    print(f"  tolerance: {HENC_TOL['reason']}")
-    layer = htdemucs.HEncLayer(cin, c, freq=True, gen=gen)
-    for blk in layer.dconv.layers:      # raise the 1e-3 LayerScale init
-        blk.scale.scale.data.fill_(0.5)
-    layer = layer.to("cuda")
+    cin, f, c = 4, 2048, 48
     x = torch.randn((b, cin, f, t), generator=gen).to("cuda", torch.bfloat16)
     with torch.inference_mode():
         got = fused_enc.henc_freq_fused(layer, x)
@@ -245,7 +264,7 @@ def check_henc(gen: torch.Generator) -> dict:
         err = compare(f"B={b} F={f} T={t}", got, want, HENC_TOL)
         # the per-op layer in bf16 (cuDNN convolutions): the yardstick
         library = lambda: htdemucs.henc_layer_apply(layer, x, kernels=False)  # noqa: E731
-        row = {**err,
+        row = {"B": b, "T": t, "launches_per_group": per_group, **err,
                "ms": cuda_ms(lambda: fused_enc.henc_freq_fused(layer, x), 20),
                "plain_ms": cuda_ms(lambda: fused_enc.henc_freq_plain(layer, x),
                                    20),
@@ -254,19 +273,175 @@ def check_henc(gen: torch.Generator) -> dict:
     flops = 2.0 * b * fo * t * (c * cin * 8 + 2 * (h * c * 3 + 2 * c * h)
                                 + 2 * c * c)
     nbytes = 2.0 * (b * cin * f * t + b * c * fo * t)
-    bnd = bound(flops, nbytes, BF16_TENSOR_FLOPS)
-    print(f"    ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.4f}  "
-          f"library_ms {row['library_ms']:.4f}  bound_ms "
-          f"{bnd['bound_ms']:.4f} ({bnd['bound_by']})")
-    return {"name": "henc_freq_fused", "route": "cuda",
-            "source": "audio_to_sheet_music_tpu_torch/csrc/henc_freq.cu",
-            "replaces": "audio_to_sheet_music_tpu/ops/pallas_enc.py:173",
-            "launches": 0, "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
-            "library_ms": row["library_ms"], "rms_err": row["rms_err"],
-            "shape": [b, cin, f, t], "flops": flops, "bytes": nbytes,
-            "per": "one launch (one group of 4 chunks)"}
+    row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
+    _print_times(row)
+    return row
+
+
+def check_henc(gen: torch.Generator) -> dict:
+    from audio_to_sheet_music_tpu_torch.models import htdemucs
+
+    print("henc_freq_fused (B, 4, 2048, T) -> C=48, bf16:")
+    print(f"  tolerance: {HENC_TOL['reason']}")
+    layer = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+    for blk in layer.dconv.layers:      # raise the 1e-3 LayerScale init
+        blk.scale.scale.data.fill_(0.5)
+    layer = layer.to("cuda").requires_grad_(False)
+    forms = [_henc_form(layer, 4, 259, 1, gen),     # one serving group
+             _henc_form(layer, 1, 1292, 0, gen)]    # one 30 s chunk
+    return _kernel_entry(
+        "henc_freq_fused", "audio_to_sheet_music_tpu_torch/csrc/henc_freq.cu",
+        "audio_to_sheet_music_tpu/ops/pallas_enc.py:173", forms,
+        "launches_per_group", BF16_TENSOR_FLOPS,
+        "one launch (one group of 4 chunks)")
+
+
+def _weighted(forms: list, key: str, weight: str) -> float:
+    n = sum(f[weight] for f in forms)
+    return sum(f[key] * f[weight] for f in forms) / n
+
+
+def _kernel_entry(name: str, source: str, replaces: str, forms: list,
+                  weight: str, flop_rate: float, per: str) -> dict:
+    """One entry of the kernels line: times and bound as means per launch
+    over the path's mix of forms (a form of weight 0, such as the ragged
+    one, counts only in ``max_abs_err``)."""
+    t_ops = _weighted(forms, "flops", weight) / flop_rate * 1e3
+    t_bytes = _weighted(forms, "bytes", weight) / MEMORY_BYTES_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": max(f["max_abs_err"] for f in forms),
+            "ms": _weighted(forms, "ms", weight),
+            "plain_ms": _weighted(forms, "plain_ms", weight),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": _weighted(forms, "library_ms", weight),
+            "per": per, "forms": forms}
+
+
+def check_dconv(gen: torch.Generator) -> dict:
+    from audio_to_sheet_music_tpu_torch.models import htdemucs
+    from audio_to_sheet_music_tpu_torch.ops import fused_dconv
+
+    print(f"dconv_rows (rows, C, T={TRAIN_T}) at freq layers 1-3 of a "
+          f"batch of {TRAIN_B}, bf16:")
+    print(f"  tolerance: {HENC_TOL['reason']}")
+    forms = []
+    for rows, c in DCONV_FORMS:
+        d = htdemucs.DConv(c, gen)
+        for blk in d.layers:            # raise the 1e-3 LayerScale init
+            blk.scale.scale.data.fill_(0.5)
+            blk.norm1.bias.data.normal_(generator=gen)
+            blk.norm2.bias.data.normal_(generator=gen)
+        d = d.to("cuda").requires_grad_(False)
+        x = torch.randn((rows, c, TRAIN_T), generator=gen).to(
+            "cuda", torch.bfloat16)
+        with torch.inference_mode():
+            got = fused_dconv.dconv_rows(d, x)
+            torch.cuda.synchronize()
+            want = fused_dconv.dconv_rows_plain(d, x)
+            err = compare(f"rows={rows} C={c}", got, want, HENC_TOL)
+            # the per-op DConv in bf16 (cuDNN convolutions, GroupNorm)
+            row = {"rows": rows, "C": c, "T": TRAIN_T, "launches_per_step": 1,
+                   **err,
+                   "ms": cuda_ms(lambda: fused_dconv.dconv_rows(d, x), 20),
+                   "plain_ms": cuda_ms(
+                       lambda: fused_dconv.dconv_rows_plain(d, x), 20),
+                   "library_ms": cuda_ms(
+                       lambda: htdemucs.dconv_apply(d, x), 20)}
+        h = c // 8
+        flops = 2.0 * rows * TRAIN_T * 2 * (3 * c * h + 2 * c * h)
+        nbytes = 2.0 * 2 * rows * c * TRAIN_T
+        row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
+        _print_times(row)
+        forms.append(row)
+    return _kernel_entry(
+        "dconv_rows", "audio_to_sheet_music_tpu_torch/csrc/dconv_rows.cu",
+        "audio_to_sheet_music_tpu/ops/pallas_dconv.py:199", forms,
+        "launches_per_step", BF16_TENSOR_FLOPS,
+        "mean per launch over one train step's 3 launches")
+
+
+def _block_library(q, k, v, x, wo, bo, g):
+    """The attention block as PyTorch library calls in bf16
+    (``scaled_dot_product_attention``, cuBLAS): the yardstick only."""
+    bsz, l, _ = q.shape
+    dt = q.dtype
+    heads = lambda t: t.view(bsz, -1, HEADS, D // HEADS).transpose(1, 2)  # noqa: E731
+    a = F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+    a = a.transpose(1, 2).reshape(bsz, l, D)
+    return x + g.to(dt) * F.linear(a, wo, bo.to(dt))
+
+
+def check_attn_block(gen: torch.Generator) -> dict:
+    from audio_to_sheet_music_tpu_torch.ops import fused_attn
+
+    b = TRAIN_B
+    print(f"attn_block (B={b}, D=512, 8 heads, bf16):")
+    print(f"  tolerance: {LAYER_TOL['reason']}")
+    forms = []
+    for name, l, s, per_group in LAYER_FORMS + [RAGGED]:
+        full = _layer_inputs(b, l, s, gen)
+        args = [full[0], full[1], full[2], full[3], full[6], full[7], full[8]]
+        with torch.inference_mode():
+            got = fused_attn.attn_block(*args, HEADS)
+            torch.cuda.synchronize()
+            want = fused_attn.attn_block_plain(*args, HEADS)
+            err = compare(f"{name} L={l} S={s}", got, want, LAYER_TOL)
+            iters = 5 if l * s > 1e6 else 10
+            row = {"form": name, "B": b, "L": l, "S": s,
+                   "launches_per_step": per_group, **err,
+                   "ms": cuda_ms(lambda: fused_attn.attn_block(*args, HEADS),
+                                 iters),
+                   "plain_ms": cuda_ms(
+                       lambda: fused_attn.attn_block_plain(*args, HEADS),
+                       iters),
+                   "library_ms": cuda_ms(lambda: _block_library(*args), iters)}
+        flops = 2.0 * b * l * (2 * s * D + D * D)
+        nbytes = float(2 * (2 * b * l * D + 2 * b * s * D) + 2 * D * D
+                       + 4 * 2 * D + 2 * b * l * D)
+        row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
+        _print_times(row)
+        forms.append(row)
+    return _kernel_entry(
+        "attn_block", "audio_to_sheet_music_tpu_torch/csrc/attn_block.cu",
+        "audio_to_sheet_music_tpu/ops/pallas_attn.py:113", forms,
+        "launches_per_step", BF16_TENSOR_FLOPS,
+        "mean per launch over one train step's 10 launches")
+
+
+def check_stft(gen: torch.Generator) -> dict:
+    from audio_to_sheet_music_tpu_torch.ops import fused_stft
+
+    print(f"stft ({STFT_ROWS}, {STFT_T}) f32, n_fft {NFFT}, hop {HOP}, "
+          f"{STFT_FRAMES} frames:")
+    print(f"  tolerance: {STFT_TOL['reason']}")
+    x = torch.randn((STFT_ROWS, STFT_T), generator=gen).cuda()
+    win = fused_stft.hann(NFFT, "cuda")
+    # the per-op path's call (cuFFT), unnormalised: the yardstick
+    library = lambda: torch.stft(x, NFFT, HOP, window=win, win_length=NFFT,  # noqa: E731
+                                 center=False, normalized=False,
+                                 return_complex=True)
+    with torch.inference_mode():
+        got = fused_stft.stft(x, NFFT, HOP, STFT_FRAMES)
+        torch.cuda.synchronize()
+        want = fused_stft.stft_plain(x, NFFT, HOP, STFT_FRAMES)
+        err = compare(f"rows={STFT_ROWS} T={STFT_T}", torch.view_as_real(got),
+                      torch.view_as_real(want), STFT_TOL)
+        row = {**err, "launches_per_step": 1,
+               "ms": cuda_ms(lambda: fused_stft.stft(x, NFFT, HOP,
+                                                     STFT_FRAMES), 20),
+               "plain_ms": cuda_ms(lambda: fused_stft.stft_plain(
+                   x, NFFT, HOP, STFT_FRAMES), 20),
+               "library_ms": cuda_ms(library, 20)}
+    flops = 2.5 * NFFT * math.log2(NFFT) * STFT_ROWS * STFT_FRAMES
+    nbytes = 4.0 * STFT_ROWS * STFT_T + 8.0 * STFT_ROWS * (NFFT // 2 + 1) * STFT_FRAMES
+    row.update(bound(flops, nbytes, F32_FLOPS))
+    _print_times(row)
+    return _kernel_entry(
+        "stft", "audio_to_sheet_music_tpu_torch/csrc/stft.cu",
+        "audio_to_sheet_music_tpu/ops/pallas_stft.py:105", [row],
+        "launches_per_step", F32_FLOPS, "one launch (one train step)")
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +449,11 @@ def check_henc(gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 # kernel-name fragments -> the layer of the path they belong to (first match)
-KERNEL_GROUPS = [("layer_tail", ("gemm_kernel<", "flash_kernel", "ln_kernel")),
-                 ("henc_freq_fused", ("henc_kernel",)),
+KERNEL_GROUPS = [("layer_tail / attn_block", ("gemm_kernel<", "flash_kernel",
+                                               "ln_kernel")),
+                 ("henc_freq_fused", ("henc_",)),
+                 ("DConv routine (henc_freq_fused, dconv_rows)", ("dconv::",)),
+                 ("STFT kernel", ("stft_kernel",)),
                  ("GroupNorm statistics", ("RowwiseMoments",)),
                  ("cuDNN convolution", ("cudnn", "conv", "implicit", "dgrad",
                                         "fprop")),
@@ -296,16 +474,16 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_path(sep, song: np.ndarray) -> dict:
-    """Device time by kernel over one ``separate_all_pcm``, and the share of
-    the wall time in which some kernel or copy ran on the card."""
+def profile_device(fn, label: str) -> dict:
+    """Device time by kernel over one call of ``fn``, and the share of the
+    wall time in which some kernel or copy ran on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sep.separate_all_pcm(song)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -321,7 +499,7 @@ def profile_path(sep, song: np.ndarray) -> dict:
     if not rows:
         raise SmokeFailure("the profiler saw no device time")
     total = sum(r[1] for r in rows)
-    print(f"profile of one separate_all_pcm: wall {wall_ms:.1f} ms, device "
+    print(f"profile of {label}: wall {wall_ms:.1f} ms, device "
           f"busy {busy / 1e3:.1f} ms ({busy / 1e3 / wall_ms:.1%}), kernel "
           f"time {total:.1f} ms")
     groups: dict = {}
@@ -340,7 +518,6 @@ def profile_path(sep, song: np.ndarray) -> dict:
 def run_path(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.infer.session import Separator
     from audio_to_sheet_music_tpu_torch.models import atht
-    from audio_to_sheet_music_tpu_torch.ops import fused_attn, fused_enc
 
     t0 = time.perf_counter()
     model = atht.load_params(atht.init(SEED))          # + trained head
@@ -363,14 +540,13 @@ def run_path(profile: bool) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    fused_attn.layer_tail.launches = 0
-    fused_enc.henc_freq_fused.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
     t0 = time.perf_counter()
     pcm, scales = sep.separate_all_pcm(song)
     wall = time.perf_counter() - t0
-    launches = {"layer_tail": fused_attn.layer_tail.launches,
-                "henc_freq_fused": fused_enc.henc_freq_fused.launches}
+    launches = {k: v for k, v in _read_counters().items()
+                if k in ("layer_tail", "henc_freq_fused")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rate = 4 * SONG_SECONDS / wall
     print(f"separate_all_pcm: warm-up {warm_s:.2f} s, run {wall:.3f} s, "
@@ -406,7 +582,8 @@ def run_path(profile: bool) -> dict:
               "peak_mem_gib": peak_gib, "path_rms": rms,
               "path_ref_rms": ref_rms, "stem_rms_lsb": stem_rms.tolist()}
     if profile:
-        result["profile"] = profile_path(sep, song)
+        result["profile"] = profile_device(lambda: sep.separate_all_pcm(song),
+                                           "one separate_all_pcm")
         result["per_op_audio_sec_per_sec"] = per_op_rate(model, song)
     return result
 
@@ -425,6 +602,199 @@ def per_op_rate(model, song: np.ndarray) -> float:
     print(f"separate_all_pcm on the per-op path: run {wall:.3f} s, "
           f"{rate:.2f} audio-sec/sec")
     return rate
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: training
+# ---------------------------------------------------------------------------
+
+NEW_KERNELS = ("stft", "henc_freq_fused", "dconv_rows", "attn_block")
+
+
+def _counters() -> dict:
+    from audio_to_sheet_music_tpu_torch.ops import (fused_attn, fused_dconv,
+                                                    fused_enc, fused_stft)
+
+    return {"layer_tail": fused_attn.layer_tail,
+            "henc_freq_fused": fused_enc.henc_freq_fused,
+            "dconv_rows": fused_dconv.dconv_rows,
+            "attn_block": fused_attn.attn_block, "stft": fused_stft.stft}
+
+
+def _zero_counters() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counters() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _train_config(root: Path):
+    from audio_to_sheet_music_tpu_torch.config import (Config, DataConfig,
+                                                       TrainingConfig,
+                                                       WandbConfig)
+
+    return Config(
+        data=DataConfig(train_dir=str(root / "train"),
+                        test_dir=str(root / "test"),
+                        segment_seconds=CHUNK_SECONDS),
+        training=TrainingConfig(batch_size=TRAIN_B, num_epochs=1),
+        wandb=WandbConfig(log_every=1, validate_every=1, save_every=1,
+                          checkpoint_dir=str(root / "ckpt"),
+                          output_dir=str(root / "out")))
+
+
+def _time_steps(model, batch: dict, kernels, n: int, profile: bool) -> dict:
+    """Warm train steps of the head under one selection on a fresh
+    optimizer (the towers do not change, the head does); with ``profile``,
+    one more step under the profiler."""
+    from audio_to_sheet_music_tpu_torch.train import step as tstep
+
+    state = tstep.TrainState.create(model, lambda p: tstep.make_optimizer(p))
+    step = tstep.make_train_step({}, torch.bfloat16, kernels)
+    step(state, batch)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        metrics = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"steps_per_s": n / wall, "step_ms": wall / n * 1e3,
+           "loss": float(metrics["loss/total"]),
+           "launches_per_step": {k: v / n for k, v in _read_counters().items()}}
+    if profile:
+        out["profile"] = profile_device(lambda: step(state, batch),
+                                        f"one {kernels} train step")
+    return out
+
+
+def run_training(profile: bool) -> dict:
+    import tempfile
+
+    from audio_to_sheet_music_tpu_torch.data import synthetic_tracks
+    from audio_to_sheet_music_tpu_torch.models import atht
+    from audio_to_sheet_music_tpu_torch.ops import losses as tlosses
+    from audio_to_sheet_music_tpu_torch.train.trainer import put_batch, train
+
+    model = atht.load_params(atht.init(SEED)).to("cuda")   # + trained head
+    towers = {k: v.detach().clone() for k, v in model.state_dict().items()
+              if not k.startswith("head.")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        synthetic_tracks(4, seconds=12.0, cache_dir=root / "train", seed=SEED)
+        synthetic_tracks(1, seconds=12.0, cache_dir=root / "test",
+                         seed=SEED + 1)
+        cfg = _train_config(root)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        t0 = time.perf_counter()
+        result = train(cfg, model=model, device="cuda", kernels="opt_in")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        logs = [json.loads(x) for x in
+                (root / "out" / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in logs if "train/loss/total" in r]
+        print(f"train (opt_in, batch {TRAIN_B} x {CHUNK_SECONDS:.0f} s, "
+              f"bf16): {len(steps)} steps + validation in {wall:.2f} s, "
+              f"{result['steps_per_s']:.3f} steps/s over the epoch, peak "
+              f"device memory {peak_gib:.2f} GiB, val SDR "
+              f"{result['best_sdr']:.3f} dB")
+        for r in steps:
+            print(f"  step {r['step']}: loss {r['train/loss/total']:.5f}, "
+                  f"grad norm {r['train/grad_norm']:.5f}")
+        print(f"  launches {launches}")
+        if not steps or not all(math.isfinite(r["train/loss/total"])
+                                and math.isfinite(r["train/grad_norm"])
+                                for r in steps):
+            raise SmokeFailure("training logged no step or a non-finite loss")
+        for name in NEW_KERNELS:
+            if launches[name] <= 0:
+                raise SmokeFailure(f"{name} was not launched on the "
+                                   "training path")
+        for name in ("latest", "best", "epoch_0000"):
+            if not (root / "ckpt" / name / "state.pt").exists():
+                raise SmokeFailure(f"no {name} checkpoint was written")
+        changed = [k for k, v in model.state_dict().items()
+                   if not k.startswith("head.") and not torch.equal(v, towers[k])]
+        if changed:
+            raise SmokeFailure(f"training changed tower weights: {changed[:3]}")
+
+        saved = {k: v.clone() for k, v in model.head.state_dict().items()}
+        with torch.no_grad():
+            for p in model.head.parameters():
+                p.zero_()
+        again = train(cfg, model=model, device="cuda", kernels="opt_in")
+        resumed = all(torch.equal(v, saved[k])
+                      for k, v in model.head.state_dict().items())
+        print(f"resume from latest: head restored {resumed}, final epoch "
+              f"{again['final_epoch']}")
+        if not resumed:
+            raise SmokeFailure("the resumed head differs from the saved one")
+
+        from audio_to_sheet_music_tpu_torch.data import (BatchLoader,
+                                                         StemSegmentDataset,
+                                                         discover_tracks)
+        from audio_to_sheet_music_tpu_torch.text.tokenizer import (
+            default_tokenizer)
+
+        ds = StemSegmentDataset(discover_tracks(root / "train"),
+                                cfg.data.segment_samples)
+        raw = next(iter(BatchLoader(ds, TRAIN_B, default_tokenizer(),
+                                    shuffle=False)))
+        batch = put_batch(raw, torch.device("cuda"))
+
+    # one batch, one head: the opt-in loss against the per-op loss
+    with torch.no_grad():
+        losses = {}
+        for sel in ("opt_in", None):
+            est = atht.forward(model, batch["mixture"], batch["input_ids"],
+                               batch["attention_mask"], torch.bfloat16, sel)
+            losses[sel] = float(tlosses.combined_loss(
+                est, batch["target"])[0])
+        resid = float((batch["target"] - est.float()).pow(2).mean().sqrt())
+    # a stem difference of PATH_RMS_LIMIT (rms) moves an SDR by at most
+    # 20 log10(1 + limit / rms(target - estimate)) dB
+    loss_tol = 20 * math.log10(1 + PATH_RMS_LIMIT / resid)
+    dloss = abs(losses["opt_in"] - losses[None])
+    print(f"loss on one batch: opt_in {losses['opt_in']:.6f}, per-op "
+          f"{losses[None]:.6f}, |diff| {dloss:.3e} dB (limit {loss_tol:.3e})")
+    if not dloss <= loss_tol:
+        raise SmokeFailure("the opt-in loss diverges from the per-op loss")
+
+    wav = torch.from_numpy((0.1 * np.random.default_rng(SEED).standard_normal(
+        (1, 2, int(CHUNK_SECONDS * SAMPLE_RATE)))).astype(np.float32)).cuda()
+    emb = torch.from_numpy((np.random.default_rng(SEED).standard_normal(
+        (1, 512)) / np.sqrt(512)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        ker = atht.forward_with_text_emb(model, wav, emb, torch.bfloat16,
+                                         kernels="opt_in").float()
+        ref = atht.forward_with_text_emb(model, wav, emb, torch.bfloat16,
+                                         kernels=False).float()
+    rms = float((ker - ref).pow(2).mean().sqrt())
+    print(f"6 s forward, opt_in kernels vs per-op: rms diff {rms:.3e} (limit "
+          f"{PATH_RMS_LIMIT:.0e})")
+    if not (math.isfinite(rms) and rms < PATH_RMS_LIMIT):
+        raise SmokeFailure("the opt-in path diverges from the per-op path")
+
+    timed = {}
+    for label, sel in (("opt_in", "opt_in"), ("default", True),
+                       ("none", False)):
+        timed[label] = _time_steps(model, batch, sel, 3,
+                                   profile and label == "opt_in")
+        print(f"warm train step, {label}: {timed[label]['step_ms']:.1f} ms "
+              f"({timed[label]['steps_per_s']:.3f} steps/s), loss "
+              f"{timed[label]['loss']:.5f}")
+    print(f"  launches per opt_in step: {timed['opt_in']['launches_per_step']}")
+    return {"launches": launches, "wall_s": wall,
+            "epoch_steps_per_s": result["steps_per_s"], "peak_mem_gib": peak_gib,
+            "steps": steps, "val_sdr": result["best_sdr"],
+            "loss_opt_in": losses["opt_in"], "loss_per_op": losses[None],
+            "loss_tol": loss_tol, "path_rms_opt_in": rms, "timed": timed}
 
 
 def main(argv: list) -> int:
@@ -448,18 +818,24 @@ def main(argv: list) -> int:
         card = card_line()
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}")
-        build_s = build.build_all(["layer_tail", "henc_freq"])
+        sources = ["layer_tail", "henc_freq", "dconv_rows", "attn_block",
+                   "stft"]
+        build_s = build.build_all(sources)
         print(f"kernels built in {build_s:.2f} s")
-        for name in ("layer_tail", "henc_freq"):
+        for name in sources:
             for line in build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
         gen = torch.Generator().manual_seed(SEED)
-        kernels = [check_layer_tail(gen), check_henc(gen)]
+        kernels = [check_layer_tail(gen), check_henc(gen), check_dconv(gen),
+                   check_attn_block(gen), check_stft(gen)]
         path = run_path(profile)
+        training = run_training(profile)
         for k in kernels:
-            k["launches"] = path["launches"][k["name"]]
+            counts = (path["launches"] if k["name"] in path["launches"]
+                      else training["launches"])
+            k["launches"] = counts[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -467,8 +843,8 @@ def main(argv: list) -> int:
     out = Path("build")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernels": kernels, "path": path},
-        indent=1))
+        {"card": card, "build_s": build_s, "kernels": kernels, "path": path,
+         "training": training}, indent=1))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -6,20 +6,25 @@ configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-They cover the shapes the serving path does not reach (short and ragged
-sequences, one key, single rows, odd T); ``chip_smoke.py`` covers the
-serving shapes.  Tolerances are those of ``chip_smoke.py``, for the same
-reasons: a few bf16 output steps for ``layer_tail``, one or two for the f32
-``henc_freq_fused``.
+They cover the shapes the serving and training paths do not reach (short
+and ragged sequences, one key, single rows, odd T, a frame count off the
+kernel's frame block), a 30 s chunk through ``henc_freq_fused``, and the
+refusals (a tensor that requires grad, a wrong dtype); ``chip_smoke.py``
+covers the paths' own shapes.  Tolerances are those of ``chip_smoke.py``,
+for the same reasons: a few bf16 output steps for ``layer_tail`` and
+``attn_block``, one or two for the f32-inside ``henc_freq_fused`` and
+``dconv_rows``, and an f32 FFT's rounding for ``stft``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
 from audio_to_sheet_music_tpu_torch.models import htdemucs
-from audio_to_sheet_music_tpu_torch.ops import fused_attn, fused_enc
+from audio_to_sheet_music_tpu_torch.ops import (fused_attn, fused_dconv,
+                                                fused_enc, fused_stft)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,9 +42,11 @@ def _close(got, want, max_rel, rms_rel):
     g, w = got.float(), want.float()
     assert torch.isfinite(g).all()
     err = (g - w).abs()
-    assert float(err.max()) <= max_rel * float(w.abs().max())
-    assert float(err.pow(2).mean().sqrt()) <= rms_rel * float(
-        w.pow(2).mean().sqrt())
+    top, rms = float(w.abs().max()), float(w.pow(2).mean().sqrt())
+    msg = (f"max err {float(err.max()):.4g} vs max|ref| {top:.4g}, rms err "
+           f"{float(err.pow(2).mean().sqrt()):.4g} vs rms(ref) {rms:.4g}")
+    assert float(err.max()) <= max_rel * top, msg
+    assert float(err.pow(2).mean().sqrt()) <= rms_rel * rms, msg
 
 
 def _layer_args(b, l, s, d, ff, gen):
@@ -107,5 +114,143 @@ def test_henc_refuses_a_strided_input(gen):
     layer = htdemucs.HEncLayer(4, 16, freq=True, gen=gen).cuda()
     x = torch.randn((1, 4, 32, 20), device="cuda",
                     dtype=torch.bfloat16).transpose(2, 3)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError), torch.no_grad():
         fused_enc.henc_freq_fused(layer, x)
+
+
+@pytest.mark.parametrize("b,t", [(1, 1300), (2, 1077)])
+def test_henc_takes_chunks_past_25_seconds(gen, b, t):
+    """T > 1076 frames: the first design's shared-memory limit is gone."""
+    layer = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+    for blk in layer.dconv.layers:
+        blk.scale.scale.data.fill_(0.5)
+    layer = layer.cuda()
+    x = torch.randn((b, 4, 2048, t), generator=gen).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        got = fused_enc.henc_freq_fused(layer, x)
+        want = fused_enc.henc_freq_plain(layer, x)
+    torch.cuda.synchronize()
+    _close(got, want, 2 * 2.0 ** -8, 2.0 ** -9)
+
+
+def test_separator_serves_30_second_chunks_through_henc(gen):
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+    from audio_to_sheet_music_tpu_torch.models import atht
+
+    model = atht.init_tiny(0)
+    sep = Separator(model, segment_seconds=30.0, overlap_seconds=1.5)
+    song = (0.1 * np.random.default_rng(0).standard_normal((2, 44100 * 40))
+            ).astype(np.float32)
+    before = fused_enc.henc_freq_fused.launches
+    pcm, scales = sep.separate_all_pcm(song, stems=["drums", "vocals"])
+    assert fused_enc.henc_freq_fused.launches > before
+    assert pcm.shape == (2, 2, song.shape[-1]) and np.isfinite(scales).all()
+
+
+def _dconv(c, gen):
+    d = htdemucs.DConv(c, gen)
+    for blk in d.layers:
+        blk.scale.scale.data.fill_(0.5)
+        blk.norm1.bias.data.normal_(generator=gen)
+        blk.norm2.bias.data.normal_(generator=gen)
+    return d.cuda()
+
+
+@pytest.mark.parametrize("r,c,t", [
+    (16, 32, 1),         # one frame (not C = 8: one hidden channel by one
+                         # frame normalises a single value, where the plain
+                         # GroupNorm's fused affine loses the f32 digits)
+    (3, 96, 33),         # a ragged second tile
+    (5, 48, 70),
+    (2, 384, 259),       # layer 3's width
+])
+def test_dconv_rows_matches_plain(gen, r, c, t):
+    d = _dconv(c, gen)
+    x = torch.randn((r, c, t), generator=gen).to("cuda", torch.bfloat16)
+    before = fused_dconv.dconv_rows.launches
+    with torch.inference_mode():
+        got = fused_dconv.dconv_rows(d, x)
+        want = fused_dconv.dconv_rows_plain(d, x)
+    torch.cuda.synchronize()
+    assert fused_dconv.dconv_rows.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    _close(got, want, 2 * 2.0 ** -8, 2.0 ** -9)
+
+
+def _block_args(b, l, s, d, gen):
+    def n(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+    bf = lambda t: t.to("cuda", torch.bfloat16).contiguous()  # noqa: E731
+    f32 = lambda t: t.to("cuda", torch.float32).contiguous()  # noqa: E731
+    return [bf(n(b, l, d)), bf(n(b, s, d)), bf(n(b, s, d)), bf(n(b, l, d)),
+            bf(n(d, d, scale=d ** -0.5)), f32(n(d, scale=0.1)),
+            f32(0.5 + 0.1 * n(d))]
+
+
+@pytest.mark.parametrize("b,l,s,d", [
+    (1, 1, 1, 512),
+    (2, 63, 65, 512),
+    (1, 130, 7, 128),
+    (3, 64, 200, 256),
+])
+def test_attn_block_matches_plain(gen, b, l, s, d):
+    args = _block_args(b, l, s, d, gen)
+    before = fused_attn.attn_block.launches
+    with torch.inference_mode():
+        got = fused_attn.attn_block(*args, d // 64)
+        want = fused_attn.attn_block_plain(*args, d // 64)
+    torch.cuda.synchronize()
+    assert fused_attn.attn_block.launches == before + 1
+    assert got.shape == (b, l, d) and got.dtype == torch.bfloat16
+    _close(got, want, 4 * 2.0 ** -8, 2.0 ** -8)
+
+
+@pytest.mark.parametrize("rows,n_fft,hop,frames", [
+    (3, 256, 128, 9),
+    (2, 4096, 1024, 11),     # frames off the 4-frame block
+    (1, 8192, 2048, 3),
+])
+def test_stft_matches_plain(gen, rows, n_fft, hop, frames):
+    x = torch.randn((rows, (frames - 1) * hop + n_fft + 5),
+                    generator=gen).cuda()
+    before = fused_stft.stft.launches
+    got = fused_stft.stft(x, n_fft, hop, frames)
+    want = fused_stft.stft_plain(x, n_fft, hop, frames)
+    torch.cuda.synchronize()
+    assert fused_stft.stft.launches == before + 1
+    assert got.shape == want.shape == (rows, n_fft // 2 + 1, frames)
+    _close(torch.view_as_real(got), torch.view_as_real(want), 1e-4, 1e-5)
+
+
+def test_kernels_refuse_inputs_that_require_grad(gen):
+    layer = htdemucs.HEncLayer(4, 16, freq=True, gen=gen).cuda()
+    layer.requires_grad_(True)
+    x = torch.randn((1, 4, 32, 20), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_enc.henc_freq_fused(layer, x)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_dconv.dconv_rows(layer.dconv, torch.randn(
+            (2, 16, 20), device="cuda", dtype=torch.bfloat16))
+    args = _block_args(1, 8, 8, 128, gen)
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_attn.attn_block(*args, 2)
+    sig = torch.randn((1, 600), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_stft.stft(sig, 256, 128, 3)
+    with torch.no_grad():            # no autograd: the same calls launch
+        fused_stft.stft(sig, 256, 128, 3)
+
+
+@torch.no_grad()
+def test_new_kernels_refuse_a_wrong_dtype(gen):
+    d = _dconv(16, gen)
+    with pytest.raises(TypeError):
+        fused_dconv.dconv_rows(d, torch.randn((2, 16, 20), device="cuda"))
+    args = _block_args(1, 8, 8, 128, gen)
+    args[0] = args[0].float()
+    with pytest.raises(TypeError):
+        fused_attn.attn_block(*args, 2)
+    with pytest.raises(TypeError):
+        fused_stft.stft(torch.randn((1, 600), device="cuda",
+                                    dtype=torch.float64), 256, 128, 3)

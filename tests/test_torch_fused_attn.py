@@ -1,11 +1,13 @@
-"""The port's fused transformer layer tail against the JAX Pallas kernel.
+"""The port's fused layer tail and attention block against the JAX Pallas
+kernels.
 
-``audio_to_sheet_music_tpu_torch.ops.fused_attn.layer_tail`` on CPU tensors
-runs its plain PyTorch version; it must equal
-``audio_to_sheet_music_tpu.ops.pallas_attn.layer_tail`` in interpret mode
-and the JAX per-op layer (``_self_layer_apply`` / ``_cross_layer_apply``)
-on the same numpy-seeded inputs.  f32 throughout; tolerance 2e-5, the one
-the JAX kernel's own tests use against its per-op path.
+``audio_to_sheet_music_tpu_torch.ops.fused_attn.layer_tail`` and
+``attn_block`` on CPU tensors run their plain PyTorch versions; they must
+equal ``audio_to_sheet_music_tpu.ops.pallas_attn.layer_tail`` /
+``attn_block`` in interpret mode and the JAX per-op layer
+(``_self_layer_apply`` / ``_cross_layer_apply``) on the same numpy-seeded
+inputs.  f32 throughout; tolerance 2e-5, the one the JAX kernel's own tests
+use against its per-op path.
 """
 
 from __future__ import annotations
@@ -144,3 +146,97 @@ def test_supports():
     assert not fused_attn.supports(512, 4, 2048)     # 128-wide heads
     assert not fused_attn.supports(512, 8, 2000)     # FF off the 64 grid
     assert not fused_attn.supports(1024, 16, 4096)   # beyond the LayerNorm registers
+
+
+def _block_inputs(seed: int, b: int, l: int, s: int):
+    r = np.random.default_rng(seed)
+    n = lambda *sh, sc=1.0: (sc * r.standard_normal(sh)).astype(np.float32)  # noqa: E731
+    return [n(b, l, D), n(b, s, D), n(b, s, D), n(b, l, D),
+            n(D, D, sc=D ** -0.5), n(D, sc=0.1), n(D, sc=0.5)]
+
+
+@pytest.mark.parametrize("l,s", [(100, 100), (100, 188), (188, 100), (1, 37)])
+def test_plain_attn_block_matches_pallas_interpret(l, s):
+    """Self (L = S) and cross forms, ragged against the 128-row tiles."""
+    args = _block_inputs(l * 3 + s, 2, l, s)
+    want = pallas_attn.attn_block(*(jnp.asarray(a) for a in args), HEADS,
+                                  interpret=True)
+    got = fused_attn.attn_block(*(torch.from_numpy(a) for a in args), HEADS)
+    assert got.shape == (2, l, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_attn_block_cpu_wrapper_takes_the_plain_version_without_counting():
+    args = [torch.from_numpy(a) for a in _block_inputs(5, 1, 30, 50)]
+    before = fused_attn.attn_block.launches
+    a = fused_attn.attn_block(*args, HEADS)
+    b = fused_attn.attn_block_plain(*args, HEADS)
+    assert fused_attn.attn_block.launches == before
+    assert torch.equal(a, b)
+
+
+def test_attn_block_refuses_a_device_without_a_kernel():
+    args = [torch.from_numpy(a).to("meta") for a in _block_inputs(6, 1, 8, 8)]
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_attn.attn_block(*args, HEADS)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_mha_residual_matches_jax(cross):
+    """``mha_residual`` (projections + ``attn_block``) against the JAX
+    ``pallas_attn.mha_residual`` in interpret mode and the JAX per-op
+    ``_attn_residual``."""
+    p, m = _layer_pair(21 + cross, cross)
+    key = "cross_attn" if cross else "self_attn"
+    r = np.random.default_rng(23)
+    x = r.standard_normal((2, 70, D)).astype(np.float32)
+    q_in = r.standard_normal((2, 70, D)).astype(np.float32)
+    kv_in = r.standard_normal((2, 90, D)).astype(np.float32) if cross else q_in
+    want = np.asarray(pallas_attn.mha_residual(
+        p[key], p["gamma_1"], jnp.asarray(x), jnp.asarray(q_in),
+        jnp.asarray(kv_in), HEADS, interpret=True))
+    per_op = np.asarray(JH._attn_residual(p, key, jnp.asarray(x),
+                                          jnp.asarray(q_in),
+                                          jnp.asarray(kv_in)))
+    with torch.no_grad():
+        got = fused_attn.mha_residual(m.attn, m.gamma_1, torch.from_numpy(x),
+                                      torch.from_numpy(q_in),
+                                      torch.from_numpy(kv_in), HEADS).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got, per_op, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_opt_in_layers_route_attention_through_the_block(cross, monkeypatch):
+    """Under the opt-in selection a layer's attention goes through
+    ``attn_block`` (``layer`` off), and the result equals the per-op layer;
+    under the default selection ``layer_tail`` subsumes it."""
+    from audio_to_sheet_music_tpu_torch.ops.select import DEFAULT, NONE, OPT_IN
+
+    p, m = _layer_pair(25 + cross, cross)
+    r = np.random.default_rng(27)
+    q = torch.from_numpy(r.standard_normal((1, 60, D)).astype(np.float32))
+    mem = torch.from_numpy(r.standard_normal((1, 90, D)).astype(np.float32))
+    calls = []
+    real = fused_attn.attn_block
+    monkeypatch.setattr(fused_attn, "attn_block",
+                        lambda *a: calls.append(1) or real(*a))
+
+    def run(sel):
+        with torch.no_grad():
+            if cross:
+                return TH._cross_layer_apply(m, q, mem, sel)
+            return TH._self_layer_apply(m, q, sel)
+
+    a = run(OPT_IN)
+    assert len(calls) == 1
+    b = run(NONE)
+    run(DEFAULT)
+    assert len(calls) == 1
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=TOL)
+
+
+def test_supports_block_is_the_jax_test():
+    for d, h in ((512, 8), (128, 2), (64, 1), (256, 3), (256, 64)):
+        assert fused_attn.supports_block(d, h) == pallas_attn.supports(d, h)

@@ -67,6 +67,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, audio_to_sheet_music_tpu_torch as p\n"
             "from audio_to_sheet_music_tpu_torch.infer import session\n"
             "from audio_to_sheet_music_tpu_torch.apps import separate\n"
+            "from audio_to_sheet_music_tpu_torch.train import trainer\n"
+            "from audio_to_sheet_music_tpu_torch import cli, config\n"
+            "from audio_to_sheet_music_tpu_torch.ops import (fused_dconv, "
+            "fused_stft, select)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'audio_to_sheet_music_tpu.'))"
             " or m == 'audio_to_sheet_music_tpu']\n"
