@@ -17,10 +17,13 @@
 // Design.  The Pallas kernel keeps a batch row's whole K/V (2 x 2.1 MB at
 // S = 2072) resident in VMEM; a Hopper block has 227 KB.  So this is two
 // launches of the building blocks layer_tail.cu uses (attn_common.cuh): the
-// flash-attention launch, one block per (64-query tile, head, batch row)
-// streaming K/V in 64-key tiles with the online softmax, into a bf16 scratch;
-// then the 64x64-tile GEMM with the out-projection epilogue (+ bo, · γ, + the
-// bf16 residual, bf16 out).
+// flash-attention launch (TMA K/V ring, wgmma for Q Kᵀ and P V, online
+// softmax in the accumulator registers), one block per (query tile, head,
+// batch row), into a bf16 scratch; then the 64x64-tile mma.sync GEMM with
+// the out-projection epilogue (+ bo, · γ, + the bf16 residual, bf16 out).
+//
+// The query tile is 64 rows, one consumer warpgroup (attn_common.cuh:flash
+// says why).
 
 #include "attn_common.cuh"
 
@@ -32,13 +35,13 @@ extern "C" int attn_block_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int L, int S, int D,
                                  float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  flash_kernel<<<dim3((L + QT - 1) / QT, D / DH, B), NT, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(a), L, S, D, scale);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = flash(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<bf16*>(a), B,
+                        L, S, D, scale, st);
   if (e != cudaSuccess) return (int)e;
   return (int)gemm<EPI_RES_X>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(wo),
       static_cast<const float*>(bo), static_cast<const float*>(g), x, out,
       B * L, D, D, st);
 }
+

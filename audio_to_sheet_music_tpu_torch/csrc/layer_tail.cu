@@ -24,20 +24,20 @@
 // most SMs idle at the serving shapes.  So the layer is split into six
 // launches, each with enough blocks to fill the card:
 //   1. gemm_kernel: q = h @ Wqᵀ + bq                     -> bf16 scratch
-//   2. flash_kernel: attention, one block per (64-query tile, head, batch
-//      row); K/V stream through shared memory in 64-key tiles with an online
-//      (running max / running sum) softmax held in registers; keys at or past
-//      S are zero-filled and scored -1e30, as in the Pallas mask
+//   2. flash_kernel: attention, one block per (query tile, head, batch
+//      row); K/V tiles of 128 keys stream through a two-stage TMA ring on
+//      mbarriers, Q Kᵀ and P V run on wgmma, and the online (running max /
+//      running sum) softmax stays in the accumulator registers; keys at or
+//      past S are zero-filled by TMA and scored -1e30, as in the Pallas mask
 //   3. gemm_kernel: y1 = x + γ1 · (a @ Woᵀ + bo)          -> f32 scratch
 //   4. ln_kernel: LayerNorm of y1, one warp a row          -> bf16 scratch
 //   5. gemm_kernel: u = gelu_erf(ln @ W1ᵀ + b1)            -> bf16 (M, FF)
 //   6. gemm_kernel: out = y1 + γ2 · (u @ W2ᵀ + b2)          -> bf16
 // The GEMMs are 64x64 block tiles over 32-deep K slices double-buffered in
 // shared memory with cp.async.  Every product is mma.sync m16n8k16 bf16 with
-// f32 accumulation; the attention keeps S and O in the mma accumulator
-// layout, so the probabilities go from the score registers straight into the
-// P·V operand registers.  Padded shared-memory rows make the fragment reads
-// conflict-free.  wgmma, TMA and fusing FF1 into FF2 are later work.  GELU
+// f32 accumulation, and padded shared-memory rows make the fragment reads
+// conflict-free; the attention is wgmma with P from registers.  wgmma and
+// TMA for the GEMMs and fusing FF1 into FF2 are later work.  GELU
 // is the exact erf form (the Pallas polynomial was a Mosaic workaround).
 // The unnormalised probabilities are rounded to bf16 before the P·V product
 // and divided by the f32 running sum afterwards; the plain version rounds
@@ -105,10 +105,9 @@ extern "C" int layer_tail_launch(
       static_cast<const float*>(bq), nullptr, nullptr, qa, M, D, D, st);
   if (e != cudaSuccess) return (int)e;
 
-  flash_kernel<<<dim3((L + QT - 1) / QT, D / DH, B), NT, 0, st>>>(
-      static_cast<const bf16*>(qa), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(qb), L, S, D, scale);
-  e = cudaGetLastError();
+  e = flash(static_cast<const bf16*>(qa), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(qb), B, L, S, D,
+            scale, st);
   if (e != cudaSuccess) return (int)e;
 
   e = gemm<EPI_RES_F32>(

@@ -84,6 +84,7 @@ def build_all(names: Iterable[str]) -> float:
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -92,8 +93,18 @@ def build_all(names: Iterable[str]) -> float:
 
 def build_log(name: str) -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) from this process's build of ``name``, if it built here."""
-    return _LOG.get(name, "")
+    spills) from the build of ``name``'s current library, in this process
+    or an earlier one."""
+    if name not in _LOG:
+        log = _target(name).with_suffix(".log")
+        return log.read_text() if log.exists() else ""
+    return _LOG[name]
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` at its current source is
+    (or will be) built."""
+    return _target(name)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -53,6 +53,22 @@ def _mm(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(a.to(dtype).float(), w.to(dtype).float().transpose(-1, -2))
 
 
+def attention_plain(q, k, v, num_heads: int) -> torch.Tensor:
+    """``concat_heads softmax(q_h k_hᵀ/√dh) v_h`` -> (B, L, D) in q's dtype,
+    with the Pallas kernels' rounding points: f32 scores and softmax, the
+    probabilities rounded to the input dtype, an f32 product."""
+    dt = q.dtype
+    b, l, d = q.shape
+    dh = d // num_heads
+    qh = q.reshape(b, l, num_heads, dh).transpose(1, 2)
+    kh = k.reshape(b, -1, num_heads, dh).transpose(1, 2)
+    vh = v.reshape(b, -1, num_heads, dh).transpose(1, 2)
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(dh)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    attn = torch.matmul(probs.float(), vh.float())
+    return attn.transpose(1, 2).reshape(b, l, d).to(dt)
+
+
 def layer_tail_plain(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2,
                      b2, g2, num_heads: int) -> torch.Tensor:
     """The fused layer tail in plain PyTorch ops; same contract as
@@ -60,16 +76,9 @@ def layer_tail_plain(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2,
     after the Q-projection, the softmax probabilities, the concatenated
     heads, the LayerNorm and the GELU."""
     dt = h.dtype
-    b, l, d = h.shape
-    dh = d // num_heads
+    d = h.shape[-1]
     q = (_mm(h, wq, dt) + bq.float()).to(dt)
-    qh = q.reshape(b, l, num_heads, dh).transpose(1, 2)
-    kh = k.reshape(b, -1, num_heads, dh).transpose(1, 2)
-    vh = v.reshape(b, -1, num_heads, dh).transpose(1, 2)
-    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(dh)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    attn = torch.matmul(probs.float(), vh.float())
-    attn = attn.transpose(1, 2).reshape(b, l, d).to(dt)
+    attn = attention_plain(q, k, v, num_heads)
     y1 = x.float() + g1.float() * (_mm(attn, wo, dt) + bo.float())
     ln = torch.nn.functional.layer_norm(y1, (d,), lnw.float(), lnb.float(),
                                         EPS).to(dt)
@@ -84,15 +93,7 @@ def attn_block_plain(q, k, v, x, wo, bo, gamma, num_heads: int
     ``attn_block``.  Rounds to the input dtype where the Pallas kernel does:
     the softmax probabilities and the concatenated heads."""
     dt = q.dtype
-    b, l, d = q.shape
-    dh = d // num_heads
-    qh = q.reshape(b, l, num_heads, dh).transpose(1, 2)
-    kh = k.reshape(b, -1, num_heads, dh).transpose(1, 2)
-    vh = v.reshape(b, -1, num_heads, dh).transpose(1, 2)
-    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(dh)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    attn = torch.matmul(probs.float(), vh.float())
-    attn = attn.transpose(1, 2).reshape(b, l, d).to(dt)
+    attn = attention_plain(q, k, v, num_heads)
     out = x.float() + gamma.float() * (_mm(attn, wo, dt) + bo.float())
     return out.to(dt)
 

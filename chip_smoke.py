@@ -7,7 +7,12 @@ Phases, in order; a failed phase exits non-zero and prints no result:
 
 1. Preflight: the card's name and power limit (``nvidia-smi``), then all
    five kernels built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
-   csrc``, one process per source, all at once.
+   csrc``, one process per source, all at once; each kernel's registers
+   and spills (``ptxas -v``), and the count of ``HGMMA`` (wgmma)
+   instructions in the flash-attention launch of the ``attn_block`` and
+   ``layer_tail`` libraries (``cuobjdump -sass``), which must not be 0; a
+   missing or failing ``cuobjdump``, or a library without the flash
+   launch, fails the phase.
 2. Kernels against their plain PyTorch versions, at the shapes their path
    gives them: ``layer_tail`` in its four forms for one group of four 6 s
    serving chunks (freq self 2072/2072, time self 1034/1034, freq cross
@@ -39,7 +44,9 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    threshold allows; then times warm train steps under the opt-in, default
    and per-op selections.
 
-``python3 chip_smoke.py --profile`` adds, after phase 3, one more
+``python3 chip_smoke.py --profile`` adds, in phase 2, how each
+``attn_block`` form's device time splits between its flash launch and its
+out-projection GEMM (profiler kernel names); after phase 3, one more
 ``separate_all_pcm`` under ``torch.profiler`` (device time by kernel group
 and the device's busy share) and one timed sweep on the per-op path
 (``Separator(kernels=False)``), the rate the kernels have to beat; and in
@@ -65,6 +72,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -106,9 +114,10 @@ HENC_TOL = {"max_rel": 2 * 2.0 ** -8, "rms_rel": 2.0 ** -9, "reason": (
     "2 bf16 steps of max|ref|, 1/2 of rms(ref): both work in f32 end to end; "
     "only the f32 summation order and the final bf16 rounding differ")}
 STFT_TOL = {"max_rel": 1e-4, "rms_rel": 1e-5, "reason": (
-    "1e-4 of max|ref|, 1e-5 of rms(ref): both are f32 FFTs (radix-2 here, "
-    "cuFFT in the plain version), whose rounding grows as eps x log2 N; 27x "
-    "below the 2.7e-3 that made the JAX kernel refuse bf16 passes")}
+    "1e-4 of max|ref|, 1e-5 of rms(ref): both are f32 FFTs (radix-16/8 "
+    "Stockham here, cuFFT in the plain version), whose rounding grows as "
+    "eps x log2 N; 27x below the 2.7e-3 that made the JAX kernel refuse bf16 "
+    "passes")}
 
 
 class SmokeFailure(RuntimeError):
@@ -171,6 +180,137 @@ def _print_times(row: dict) -> None:
     print(f"    ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.4f}  "
           f"library_ms {row['library_ms']:.4f}  bound_ms "
           f"{row['bound_ms']:.4f} ({row['bound_by']})")
+
+
+def demangle(names: list) -> list:
+    """Kernel symbols as ``cu++filt -p`` (beside ``nvcc``) prints them, for
+    labels; the symbols themselves where it is missing or fails."""
+    from audio_to_sheet_music_tpu_torch.ops import build
+
+    tool = Path(build.nvcc_path()).with_name("cu++filt")
+    if not names or not tool.exists():
+        return list(names)
+    out = subprocess.run([str(tool), "-p"], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60)
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or len(lines) != len(names):
+        return list(names)
+    return lines
+
+
+def ptxas_entries(log: str) -> list:
+    """Each kernel entry of a ``ptxas -v`` log: its name, registers and
+    spilled bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None,
+                   "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for e, label in zip(out, demangle([e["kernel"] for e in out])):
+        e["kernel"] = label
+    return out
+
+
+def flash_hgmma(name: str) -> dict:
+    """``HGMMA`` (wgmma) instructions in each flash-attention kernel of
+    the SASS of the built library ``name`` (``cuobjdump -sass``).  Fails
+    if ``cuobjdump`` is missing or fails, or the library has no flash
+    kernel."""
+    from audio_to_sheet_music_tpu_torch.ops import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        raise SmokeFailure(f"{name}: no cuobjdump beside nvcc ({tool}): "
+                           "wgmma cannot be checked")
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise SmokeFailure(f"{name}: cuobjdump -sass exited "
+                           f"{out.returncode}: {out.stderr.strip()[:500]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "flash_kernel" in m.group(1) else None
+            if cur is not None:
+                counts[cur] = 0
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    if not counts:
+        raise SmokeFailure(f"{name}: cuobjdump -sass shows no flash kernel")
+    return dict(zip(demangle(list(counts)), counts.values()))
+
+
+def check_build(sources: list) -> dict:
+    """Registers and spills of every kernel, and wgmma in the flash
+    launch of both libraries that run it."""
+    from audio_to_sheet_music_tpu_torch.ops import build
+
+    ptxas = {}
+    for name in sources:
+        ptxas[name] = ptxas_entries(build.build_log(name))
+        for e in ptxas[name]:
+            print(f"  {name}: {e['kernel']}: {e['registers']} registers, "
+                  f"{e['spill_stores']}/{e['spill_loads']} bytes spill "
+                  "stores/loads")
+    hgmma = {}
+    for name in ("attn_block", "layer_tail"):
+        hgmma[name] = flash_hgmma(name)
+        print(f"  {name}: HGMMA (wgmma) instructions in the flash launch: "
+              f"{hgmma[name]}")
+        if min(hgmma[name].values()) == 0:
+            raise SmokeFailure(f"{name}: the flash launch issues no wgmma")
+    return {"ptxas": ptxas, "hgmma": hgmma}
+
+
+def device_ms_by_kernel(calls: list, reps: int = 3, tries: int = 3) -> list:
+    """For each function of ``calls``, the device milliseconds a call spends
+    in each kernel it launches, from one ``torch.profiler`` session over
+    ``reps`` calls of each in turn: the session's kernels, in launch order,
+    are cut into one run per function (each call must launch the same
+    number of kernels).  A session that recorded no kernel, or a count that
+    does not divide, is taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        if not kern or len(kern) % (len(calls) * reps):
+            continue
+        n = len(kern) // len(calls)
+        out = []
+        for i in range(len(calls)):
+            ms: dict = {}
+            for e in kern[i * n:(i + 1) * n]:
+                ms[e.name] = ms.get(e.name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3 / reps
+            out.append(ms)
+        return out
+    raise SmokeFailure("the profiler saw no device time, or an uneven count "
+                       "of kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -373,13 +513,13 @@ def _block_library(q, k, v, x, wo, bo, g):
     return x + g.to(dt) * F.linear(a, wo, bo.to(dt))
 
 
-def check_attn_block(gen: torch.Generator) -> dict:
+def check_attn_block(gen: torch.Generator, profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import fused_attn
 
     b = TRAIN_B
     print(f"attn_block (B={b}, D=512, 8 heads, bf16):")
     print(f"  tolerance: {LAYER_TOL['reason']}")
-    forms = []
+    forms, inputs = [], []
     for name, l, s, per_group in LAYER_FORMS + [RAGGED]:
         full = _layer_inputs(b, l, s, gen)
         args = [full[0], full[1], full[2], full[3], full[6], full[7], full[8]]
@@ -403,6 +543,22 @@ def check_attn_block(gen: torch.Generator) -> dict:
         row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
         _print_times(row)
         forms.append(row)
+        inputs.append(args)
+    if profile:
+        with torch.inference_mode():
+            per_form = device_ms_by_kernel(
+                [lambda a=a: fused_attn.attn_block(*a, HEADS) for a in inputs])
+        for row, by in zip(forms, per_form):
+            row["flash_ms"] = sum(v for n, v in by.items() if "flash" in n)
+            row["gemm_ms"] = sum(v for n, v in by.items() if "gemm" in n)
+            print(f"  {row['form']}: device time: flash launch "
+                  f"{row['flash_ms']:.4f} ms, out-projection GEMM "
+                  f"{row['gemm_ms']:.4f} ms")
+        split = {k: _weighted(forms, k, "launches_per_step")
+                 for k in ("flash_ms", "gemm_ms")}
+        print(f"  a train step's mean launch: flash {split['flash_ms']:.4f} "
+              f"ms, GEMM {split['gemm_ms']:.4f} ms ("
+              f"{split['flash_ms'] / sum(split.values()):.1%} flash)")
     return _kernel_entry(
         "attn_block", "audio_to_sheet_music_tpu_torch/csrc/attn_block.cu",
         "audio_to_sheet_music_tpu/ops/pallas_attn.py:113", forms,
@@ -822,14 +978,12 @@ def main(argv: list) -> int:
                    "stft"]
         build_s = build.build_all(sources)
         print(f"kernels built in {build_s:.2f} s")
-        for name in sources:
-            for line in build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+        compiled = check_build(sources)
 
         gen = torch.Generator().manual_seed(SEED)
-        kernels = [check_layer_tail(gen), check_henc(gen), check_dconv(gen),
-                   check_attn_block(gen), check_stft(gen)]
+        kernels = [check_layer_tail(gen), check_henc(gen),
+                   check_dconv(gen), check_attn_block(gen, profile),
+                   check_stft(gen)]
         path = run_path(profile)
         training = run_training(profile)
         for k in kernels:
@@ -843,8 +997,8 @@ def main(argv: list) -> int:
     out = Path("build")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernels": kernels, "path": path,
-         "training": training}, indent=1))
+        {"card": card, "build_s": build_s, "compiled": compiled,
+         "kernels": kernels, "path": path, "training": training}, indent=1))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -8,9 +8,12 @@ configuration:
 
 They cover the shapes the serving and training paths do not reach (short
 and ragged sequences, one key, single rows, odd T, a frame count off the
-kernel's frame block), a 30 s chunk through ``henc_freq_fused``, and the
-refusals (a tensor that requires grad, a wrong dtype); ``chip_smoke.py``
-covers the paths' own shapes.  Tolerances are those of ``chip_smoke.py``,
+kernel's frame block), the flash launch's tile edges (S at and one past a
+128-key tile, L one 64-row query tile, grids of more blocks than the card
+has SMs), the four serving forms at B = 4, a
+30 s chunk through ``henc_freq_fused``, and the refusals (a tensor that
+requires grad, a wrong dtype); ``chip_smoke.py`` covers the paths' own
+shapes.  Tolerances are those of ``chip_smoke.py``,
 for the same reasons: a few bf16 output steps for ``layer_tail`` and
 ``attn_block``, one or two for the f32-inside ``henc_freq_fused`` and
 ``dconv_rows``, and an f32 FFT's rounding for ``stft``.
@@ -63,12 +66,26 @@ def _layer_args(b, l, s, d, ff, gen):
             f32(0.5 + 0.1 * n(d))]
 
 
+# (B, L, S) at the flash launch's edges: 128-key tiles, 64-row query
+# tiles, grids past 132 SMs
+FLASH_EDGES = [
+    (2, 100, 128),               # S exactly one key tile
+    (2, 100, 129),               # S one past a tile
+    (3, 64, 300),                # L one query tile
+    (40, 128, 200),              # L two query tiles; 640 blocks
+    (24, 300, 257),              # 24 x 8 heads x 5 tiles: 960 blocks
+]
+# the four serving forms of one group of four 6 s chunks
+SERVING_FORMS = [(4, 2072, 2072), (4, 1034, 1034), (4, 2072, 1034),
+                 (4, 1034, 2072)]
+
+
 @pytest.mark.parametrize("b,l,s,d,ff", [
     (1, 1, 1, 512, 2048),        # one query, one key
     (2, 63, 65, 512, 2048),      # both sides off the 64-row tile
     (1, 130, 7, 128, 256),       # narrow model, fewer keys than a tile
     (3, 64, 200, 256, 1024),
-])
+] + [(b, l, s, 512, 2048) for b, l, s in FLASH_EDGES + SERVING_FORMS])
 def test_layer_tail_matches_plain(gen, b, l, s, d, ff):
     args = _layer_args(b, l, s, d, ff, gen)
     before = fused_attn.layer_tail.launches
@@ -192,7 +209,7 @@ def _block_args(b, l, s, d, gen):
     (2, 63, 65, 512),
     (1, 130, 7, 128),
     (3, 64, 200, 256),
-])
+] + [(b, l, s, 512) for b, l, s in FLASH_EDGES + SERVING_FORMS])
 def test_attn_block_matches_plain(gen, b, l, s, d):
     args = _block_args(b, l, s, d, gen)
     before = fused_attn.attn_block.launches
@@ -209,6 +226,9 @@ def test_attn_block_matches_plain(gen, b, l, s, d):
     (3, 256, 128, 9),
     (2, 4096, 1024, 11),     # frames off the 4-frame block
     (1, 8192, 2048, 3),
+    (2, 512, 128, 13),
+    (3, 2048, 512, 17),
+    (1, 4096, 1024, 263),    # a training row: 263 = 65 x 4 + 3
 ])
 def test_stft_matches_plain(gen, rows, n_fft, hop, frames):
     x = torch.randn((rows, (frames - 1) * hop + n_fft + 5),

@@ -12,6 +12,8 @@ use against its per-op path.
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -240,3 +242,68 @@ def test_opt_in_layers_route_attention_through_the_block(cross, monkeypatch):
 def test_supports_block_is_the_jax_test():
     for d, h in ((512, 8), (128, 2), (64, 1), (256, 3), (256, 64)):
         assert fused_attn.supports_block(d, h) == pallas_attn.supports(d, h)
+
+
+# --- the flash launch's algorithm, modelled on the CPU -----------------------
+# ``csrc/attn_common.cuh:flash_kernel`` cannot run here.  This model repeats
+# its tiling and rounding points in torch on bf16 inputs; it must agree with
+# ``attn_block_plain`` (which normalises before rounding the probabilities)
+# within chip_smoke.py's LAYER_TOL, the tolerance the kernel is held to on
+# the card.
+
+LAYER_TOL = (4 * 2.0 ** -8, 2.0 ** -8)    # max and rms, in units of the ref's
+KEY_TILE = 128                             # csrc/attn_common.cuh:KT
+LOG2E = 1.4426950408889634
+
+
+def _flash_model(q, k, v, num_heads: int) -> torch.Tensor:
+    """Per head: 128-key tiles (zero rows past S, as TMA fills them), scores
+    in f32 from bf16 operands, keys past S at -1e30, the online softmax in
+    base 2 with the running max in scaled units and each probability
+    ``2^(s · scale · log2 e - m)``, P rounded to bf16 unnormalised,
+    O += P V in f32, one division by the f32 row sum at the end, the output
+    rounded to bf16."""
+    b, l, d = q.shape
+    s = k.shape[1]
+    dh = d // num_heads
+    pad = -s % KEY_TILE
+    kp = torch.cat([k, k.new_zeros(b, pad, d)], 1).float()
+    vp = torch.cat([v, v.new_zeros(b, pad, d)], 1).float()
+    heads = lambda t: t.reshape(b, -1, num_heads, dh).transpose(1, 2)  # noqa: E731
+    qh, kh, vh = heads(q.float()), heads(kp), heads(vp)
+    scale = LOG2E / math.sqrt(dh)
+    m = torch.full((b, num_heads, l, 1), -math.inf)
+    tot = torch.zeros((b, num_heads, l, 1))
+    o = torch.zeros((b, num_heads, l, dh))
+    for t0 in range(0, s + pad, KEY_TILE):
+        sc = qh @ kh[:, :, t0:t0 + KEY_TILE].transpose(-1, -2)
+        keys = torch.arange(t0, t0 + KEY_TILE)
+        sc = torch.where(keys < s, sc, torch.tensor(-1e30))
+        mnew = torch.maximum(m, sc.amax(-1, keepdim=True) * scale)
+        alpha = torch.exp2(m - mnew)
+        p = torch.exp2(sc * scale - mnew)
+        tot = tot * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vh[:, :, t0:t0 + KEY_TILE]
+        m = mnew
+    return (o / tot).transpose(1, 2).reshape(b, l, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [1, 7, 777, 2072])
+def test_flash_tiling_model_matches_plain_attn_block(s):
+    """The kernel's tiling and rounding, then the out-projection as the
+    GEMM launch computes it, against ``attn_block_plain`` in bf16."""
+    args = [torch.from_numpy(a) for a in _block_inputs(s, 1, 70, s)]
+    bf = [a.to(torch.bfloat16) for a in args[:5]] + [args[5], args[6]]
+    q, k, v, x, wo, bo, gamma = bf
+    want = fused_attn.attn_block_plain(*bf, HEADS).float()
+    attn = _flash_model(q, k, v, HEADS)
+    got = (x.float() + gamma * (fused_attn._mm(attn, wo, torch.bfloat16) + bo)
+           ).to(torch.bfloat16).float()
+    err = (got - want).abs()
+    assert float(err.max()) <= LAYER_TOL[0] * float(want.abs().max())
+    assert (float(err.pow(2).mean().sqrt())
+            <= LAYER_TOL[1] * float(want.pow(2).mean().sqrt()))
+    # the attention alone, against the plain attention's bf16 output
+    ref = fused_attn.attention_plain(q, k, v, HEADS).float()
+    aerr = (attn.float() - ref).abs()
+    assert float(aerr.max()) <= LAYER_TOL[0] * float(ref.abs().max())
