@@ -10,11 +10,11 @@
 // frames, resident in VMEM and masks the pad for the GroupNorm statistics
 // and between the dilated blocks.  A Hopper block cannot hold one row at
 // C = 384 (398 KB in f32), so the work is the shared routine of
-// dconv_row.cuh: per block three launches over a (row, 32-frame tile) grid,
-// the row's GroupNorm statistics merged from per-tile partials, no padding
-// (a ragged last tile is masked), and the f32 result of block 0 kept in a
-// scratch for block 1.  What bounds it and what the design does about it is
-// in that header.
+// dconv_row.cuh: per block three launches over (row, 64-frame tile) blocks,
+// each a bf16 mma.sync product with its epilogue, the row's GroupNorm
+// statistics merged from per-tile partials, no padding (a ragged last tile
+// is masked), and the f32 result of block 0 kept in a scratch for block 1.
+// What bounds it and what the design does about it is in that header.
 
 #include "dconv_row.cuh"
 
@@ -24,9 +24,13 @@ extern "C" size_t dconv_rows_part_floats(int R, int T) {
   return dconv::part_floats(R, T);
 }
 
-// x (R, C, T) bf16 -> out (R, C, T) bf16 on `stream`.  dw holds the 18 f32
-// weight pointers, block 0 then block 1, each w1 (H, C, 3), b1, g1, bt1,
-// w2 (2C, H), b2, g2, bt2, scale.  Returns the first CUDA error (0 on
+// The hidden width Hp the weights are padded to.
+extern "C" int dconv_rows_hidden_pad(int C) { return dconv::hidden_pad(C); }
+
+// x (R, C, T) bf16 -> out (R, C, T) bf16 on `stream`, C a multiple of 8 up
+// to dconv::MAX_C.  dw holds the 18 weight pointers, block 0 then block 1,
+// each w1 (3, C, Hp) bf16, b1, g1, bt1, w2 (2C, Hp) bf16, b2, g2, bt2,
+// scale (f32); the pad is zero.  Returns the first CUDA error (0 on
 // success).
 extern "C" int dconv_rows_launch(const void* x, const void* const* dw,
                                  void* mid, void* u, void* part, void* out,

@@ -8,27 +8,31 @@
 //   2 x DConv block over the row (dconv_row.cuh)
 //   out = (wr y + br)[:C] * sigmoid((wr y + br)[C:])                (C x T)
 //
-// Input and output are bf16, every intermediate f32.
+// Input and output are bf16, every intermediate f32; the DConv's two
+// convolutions take bf16 operands with f32 sums, the JAX kernel's rule on
+// bf16 input (its dot_dtype).
 //
 // What bounds it on an H100: bytes.  Per 6 s chunk it reads ~4.2 MB and
 // writes ~12.7 MB of bf16 against ~2.4 GFLOP, under the card's ~295
 // FLOP/byte ridge for bf16 tensor-core work.
 //
-// Design.  Three stages, each over a (row, 32-frame tile) grid, so a chunk
+// Design.  Three stages, each over (row, 64-frame tile) blocks, so a chunk
 // of any length runs (the first version kept a whole (C + C/8, T) row in one
 // block's shared memory and refused T > 1076 frames):
 //   1. henc_conv_kernel: the strided conv + bias + GELU, one output per
 //      thread, into an f32 scratch y laid out as (b, fo) rows of (C, T);
 //   2. the DConv routine of dconv_row.cuh, both blocks in place on y (six
-//      launches; GroupNorm statistics merged from per-tile partials);
+//      launches of bf16 mma.sync products; GroupNorm statistics merged from
+//      per-tile partials);
 //   3. henc_rewrite_kernel: the 1x1 C -> 2C conv and the GLU from a
-//      (C x 32) tile of y in shared memory, written to the (B, C, F/4, T)
+//      (C x 64) tile of y in shared memory, written to the (B, C, F/4, T)
 //      bf16 output.
-// The products are f32 FMA loops on the CUDA cores (contraction depths 32,
-// 3C, C/8 and C), which makes it FMA-bound rather than byte-bound; moving the
-// conv and the rewrite onto bf16 MMA tiles is the next step.  The s2d
-// relayout and the VMEM block model of the Pallas kernel are TPU tiling
-// artefacts and are not carried over.
+// The conv and the rewrite are still f32 FMA loops on the CUDA cores
+// (contraction depths 32 and C), which makes those two stages FMA-bound
+// rather than byte-bound; moving them onto bf16 MMA tiles is the next step.
+// The tile is the routine's (dconv_row.cuh says what it measured against
+// 32 frames).  The s2d relayout and the VMEM block model of the Pallas
+// kernel are TPU tiling artefacts and are not carried over.
 
 #include "dconv_row.cuh"
 
@@ -107,10 +111,14 @@ extern "C" size_t henc_freq_part_floats(int B, int F, int T) {
   return dconv::part_floats(B * (F / STRIDE), T);
 }
 
-// x (B, Cin, F, T) bf16 -> out (B, C, F/4, T) bf16 on `stream`.  dw holds
-// the 18 f32 DConv pointers, block 0 then block 1, each in the order
-// w1 (H, C, 3), b1, g1, bt1, w2 (2C, H), b2, g2, bt2, scale.  Returns
-// the first CUDA error (0 on success).
+// The hidden width Hp the DConv weights are padded to.
+extern "C" int henc_freq_hidden_pad(int C) { return dconv::hidden_pad(C); }
+
+// x (B, Cin, F, T) bf16 -> out (B, C, F/4, T) bf16 on `stream`, C a
+// multiple of 8 up to dconv::MAX_C; wc, bc, wr, br f32.  dw holds the 18
+// DConv pointers, block 0 then block 1, each in the order w1 (3, C, Hp)
+// bf16, b1, g1, bt1, w2 (2C, Hp) bf16, b2, g2, bt2, scale (f32); the pad is
+// zero.  Returns the first CUDA error (0 on success).
 extern "C" int henc_freq_launch(const void* x, const void* wc, const void* bc,
                                 const void* wr, const void* br,
                                 const void* const* dw, void* y, void* u,

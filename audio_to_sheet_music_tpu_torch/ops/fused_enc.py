@@ -17,7 +17,8 @@ henc_freq_fused`` (Pallas body ``_kernel``, with the DConv math of
   the design does about it) or raises; a CPU tensor takes
   ``henc_freq_plain``.  ``henc_freq_fused.launches`` counts kernel launches.
 - ``henc_freq_plain``: the same function in PyTorch ops, computed in f32
-  like the kernel (bf16 in, f32 inside, input dtype out).
+  like the kernel (bf16 in, f32 inside, input dtype out); its DConv part
+  rounds its conv operands to ``dot_dtype`` as the kernel's routine does.
 - ``profitable`` and ``supports``: the layers and shapes the model sends
   here, the JAX package's tests.
 """
@@ -30,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .fused_dconv import block_weights, dconv_rows_plain
+from .fused_dconv import (MAX_CHANNELS, block_weights, dconv_rows_plain,
+                          default_dot_dtype, kernel_weights)
 
 KERNEL = 8
 STRIDE = 4
@@ -58,19 +60,29 @@ def supports(cin: int, cout: int, f: int, t: int) -> bool:
     """The shapes the JAX package sends to its kernel
     (``pallas_enc.supports``): F on the stride-4 grid, a whole DConv hidden
     width C/8, one frequency block within its VMEM budget (at layer 0 that is
-    T up to ~12.6k frames, ~290 s chunks).  The model routes by the same
-    test; the CUDA kernel itself takes any T."""
+    T up to ~12.6k frames, ~290 s chunks); and C up to the DConv routine's
+    ``MAX_CHANNELS``.  The model routes by this test; the CUDA kernel itself
+    takes any T."""
     return (f % STRIDE == 0 and f >= STRIDE and cout % 8 == 0
+            and cout <= MAX_CHANNELS
             and _freq_block(f // STRIDE, t, cin, cout) is not None)
 
 
-def henc_freq_plain(layer, x: torch.Tensor) -> torch.Tensor:
-    """``(B, Cin, F, T) -> (B, C, F/4, T)`` in PyTorch ops, f32 inside."""
+def henc_freq_plain(layer, x: torch.Tensor,
+                    dot_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``(B, Cin, F, T) -> (B, C, F/4, T)`` in PyTorch ops, f32 inside.
+
+    ``dot_dtype`` (default: ``default_dot_dtype`` of ``x``) rounds the
+    operands of the DConv part's convolutions only.  The strided conv and
+    the rewrite stay f32, because the CUDA kernel's stages for them are
+    still f32 FMAs."""
     xf = x.float()
     y = F.gelu(F.conv2d(xf, layer.conv.weight.float(), layer.conv.bias.float(),
                         stride=(STRIDE, 1), padding=(PAD, 0)))
     b, c, f, t = y.shape
-    r = dconv_rows_plain(layer.dconv, y.permute(0, 2, 1, 3).reshape(b * f, c, t))
+    r = dconv_rows_plain(layer.dconv,
+                         y.permute(0, 2, 1, 3).reshape(b * f, c, t),
+                         dot_dtype or default_dot_dtype(x.dtype))
     y = r.reshape(b, f, c, t).permute(0, 2, 1, 3)
     z = F.conv2d(y, layer.rewrite.weight.float(), layer.rewrite.bias.float())
     return F.glu(z, dim=1).to(x.dtype)
@@ -84,6 +96,8 @@ def _lib() -> ctypes.CDLL:
         lib.henc_freq_launch.restype = i
         lib.henc_freq_part_floats.argtypes = [i, i, i]
         lib.henc_freq_part_floats.restype = ctypes.c_size_t
+        lib.henc_freq_hidden_pad.argtypes = [i]
+        lib.henc_freq_hidden_pad.restype = i
         lib._bound = True
     return lib
 
@@ -94,8 +108,8 @@ def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
     ``layer`` is a ``models.htdemucs.HEncLayer`` with ``freq=True``.  CPU
     tensors take ``henc_freq_plain``.  A CUDA ``x`` must be a contiguous
     bf16 ``(B, Cin, F, T)`` with F on the stride-4 grid and C a multiple of
-    8 (any T), and nothing may require grad (there is no backward kernel),
-    else this raises.
+    8 up to ``MAX_CHANNELS`` (any T), and nothing may require grad (there is
+    no backward kernel), else this raises.
     """
     if x.device.type == "cpu":
         return henc_freq_plain(layer, x)
@@ -114,14 +128,16 @@ def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
     if tuple(layer.conv.weight.shape) != (c, cin, KERNEL, 1):
         raise ValueError(f"henc_freq_fused: conv weight "
                          f"{tuple(layer.conv.weight.shape)} for Cin={cin}")
-    if f % STRIDE or f < STRIDE or c % 8 or t < 1 or len(dconv_w) != 18:
+    if (f % STRIDE or f < STRIDE or c % 8 or c > MAX_CHANNELS or t < 1
+            or len(dconv_w) != 18):
         raise ValueError(f"henc_freq_fused: unsupported shape {(b, cin, f, t)} "
-                         f"-> C={c}")
+                         f"-> C={c} (C at most {MAX_CHANNELS})")
     dev = x.device
     weights = [build.f32(w, dev, "henc_freq_fused") for w in top_w]
-    dw = [build.f32(w, dev, "henc_freq_fused") for w in dconv_w]
-    dw_ptrs = (ctypes.c_void_p * 18)(*(w.data_ptr() for w in dw))
     lib = _lib()
+    dw = kernel_weights(layer.dconv, dev, "henc_freq_fused",
+                        lib.henc_freq_hidden_pad(c))
+    dw_ptrs = (ctypes.c_void_p * 18)(*(w.data_ptr() for w in dw))
     rows = b * (f // STRIDE)
     y = torch.empty((rows, c, t), dtype=torch.float32, device=dev)
     u = torch.empty((rows, c // 8, t), dtype=torch.float32, device=dev)

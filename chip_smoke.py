@@ -8,11 +8,13 @@ Phases, in order; a failed phase exits non-zero and prints no result:
 1. Preflight: the card's name and power limit (``nvidia-smi``), then all
    five kernels built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
    csrc``, one process per source, all at once; each kernel's registers
-   and spills (``ptxas -v``), and the count of ``HGMMA`` (wgmma)
-   instructions in the flash-attention launch of the ``attn_block`` and
-   ``layer_tail`` libraries (``cuobjdump -sass``), which must not be 0; a
-   missing or failing ``cuobjdump``, or a library without the flash
-   launch, fails the phase.
+   and spills (``ptxas -v``), the count of ``HGMMA`` (wgmma) instructions
+   in the flash-attention launch of the ``attn_block`` and ``layer_tail``
+   libraries, and of ``HMMA`` (mma.sync) instructions in each launch of the
+   DConv routine (``conv1_kernel``, ``conv2_stats_kernel``,
+   ``apply_kernel``) of the ``dconv_rows`` and ``henc_freq`` libraries
+   (``cuobjdump -sass``); a count of 0, a missing or failing
+   ``cuobjdump``, or a library without the launch fails the phase.
 2. Kernels against their plain PyTorch versions, at the shapes their path
    gives them: ``layer_tail`` in its four forms for one group of four 6 s
    serving chunks (freq self 2072/2072, time self 1034/1034, freq cross
@@ -46,7 +48,9 @@ Phases, in order; a failed phase exits non-zero and prints no result:
 
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``attn_block`` form's device time splits between its flash launch and its
-out-projection GEMM (profiler kernel names); after phase 3, one more
+out-projection GEMM, and each ``henc_freq_fused`` and ``dconv_rows`` form's
+between the DConv routine's three launches and ``henc_freq_fused``'s conv
+and rewrite (profiler kernel names); after phase 3, one more
 ``separate_all_pcm`` under ``torch.profiler`` (device time by kernel group
 and the device's busy share) and one timed sweep on the per-op path
 (``Separator(kernels=False)``), the rate the kernels have to beat; and in
@@ -111,8 +115,12 @@ LAYER_TOL = {"max_rel": 4 * 2.0 ** -8, "rms_rel": 2.0 ** -8, "reason": (
     "as the plain version does, but sums in another order and rounds the "
     "probabilities before normalising them")}
 HENC_TOL = {"max_rel": 2 * 2.0 ** -8, "rms_rel": 2.0 ** -9, "reason": (
-    "2 bf16 steps of max|ref|, 1/2 of rms(ref): both work in f32 end to end; "
-    "only the f32 summation order and the final bf16 rounding differ")}
+    "2 bf16 steps of max|ref|, 1/2 of rms(ref): both round the DConv's "
+    "conv operands to bf16 and work in f32 otherwise; the f32 summation "
+    "order differs, which can flip the bf16 rounding of an operand near a "
+    "boundary (a hidden value, or block 1's input: ~0.4 output steps at "
+    "most, tests/test_torch_fused_dconv.py), and so can the final bf16 "
+    "rounding")}
 STFT_TOL = {"max_rel": 1e-4, "rms_rel": 1e-5, "reason": (
     "1e-4 of max|ref|, 1e-5 of rms(ref): both are f32 FFTs (radix-16/8 "
     "Stockham here, cuFFT in the plain version), whose rounding grows as "
@@ -223,17 +231,17 @@ def ptxas_entries(log: str) -> list:
     return out
 
 
-def flash_hgmma(name: str) -> dict:
-    """``HGMMA`` (wgmma) instructions in each flash-attention kernel of
-    the SASS of the built library ``name`` (``cuobjdump -sass``).  Fails
-    if ``cuobjdump`` is missing or fails, or the library has no flash
-    kernel."""
+def sass_counts(name: str, pick: str, instr: str) -> dict:
+    """How many ``instr`` instructions each kernel whose symbol contains
+    ``pick`` has in the SASS of the built library ``name`` (``cuobjdump
+    -sass``), by demangled name.  Fails if ``cuobjdump`` is missing or
+    fails, or the library has no such kernel."""
     from audio_to_sheet_music_tpu_torch.ops import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     if not tool.exists():
         raise SmokeFailure(f"{name}: no cuobjdump beside nvcc ({tool}): "
-                           "wgmma cannot be checked")
+                           f"{instr} cannot be checked")
     out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
@@ -243,19 +251,30 @@ def flash_hgmma(name: str) -> dict:
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "flash_kernel" in m.group(1) else None
+            cur = m.group(1) if pick in m.group(1) else None
             if cur is not None:
                 counts[cur] = 0
-        elif cur is not None and "HGMMA" in line:
+        elif cur is not None and re.search(rf"\b{instr}\b", line):
             counts[cur] += 1
     if not counts:
-        raise SmokeFailure(f"{name}: cuobjdump -sass shows no flash kernel")
+        raise SmokeFailure(f"{name}: cuobjdump -sass shows no {pick} kernel")
     return dict(zip(demangle(list(counts)), counts.values()))
 
 
+# the DConv routine's three launches (csrc/dconv_row.cuh), each a product
+# on mma.sync tiles
+DCONV_LAUNCHES = ("conv1_kernel", "conv2_stats_kernel", "apply_kernel")
+
+
+# the launches a DConv form's device time is split into under --profile:
+# the routine's, then henc_freq_fused's own conv and rewrite
+SPLIT_LAUNCHES = DCONV_LAUNCHES + ("henc_conv_kernel", "henc_rewrite_kernel")
+
+
 def check_build(sources: list) -> dict:
-    """Registers and spills of every kernel, and wgmma in the flash
-    launch of both libraries that run it."""
+    """Registers and spills of every kernel; wgmma in the flash launch of
+    both libraries that run it, and mma.sync in each launch of the DConv
+    routine in both libraries that run it."""
     from audio_to_sheet_music_tpu_torch.ops import build
 
     ptxas = {}
@@ -267,12 +286,22 @@ def check_build(sources: list) -> dict:
                   "stores/loads")
     hgmma = {}
     for name in ("attn_block", "layer_tail"):
-        hgmma[name] = flash_hgmma(name)
+        hgmma[name] = sass_counts(name, "flash_kernel", "HGMMA")
         print(f"  {name}: HGMMA (wgmma) instructions in the flash launch: "
               f"{hgmma[name]}")
         if min(hgmma[name].values()) == 0:
             raise SmokeFailure(f"{name}: the flash launch issues no wgmma")
-    return {"ptxas": ptxas, "hgmma": hgmma}
+    hmma = {}
+    for name in ("dconv_rows", "henc_freq"):
+        hmma[name] = sass_counts(name, "dconv", "HMMA")
+        print(f"  {name}: HMMA (mma.sync) instructions in the DConv "
+              f"routine: {hmma[name]}")
+        for launch in DCONV_LAUNCHES:
+            counts = [c for n, c in hmma[name].items() if launch in n]
+            if not counts or min(counts) == 0:
+                raise SmokeFailure(f"{name}: a {launch} issues no mma.sync "
+                                   "(or there is none)")
+    return {"ptxas": ptxas, "hgmma": hgmma, "hmma": hmma}
 
 
 def device_ms_by_kernel(calls: list, reps: int = 3, tries: int = 3) -> list:
@@ -311,6 +340,22 @@ def device_ms_by_kernel(calls: list, reps: int = 3, tries: int = 3) -> list:
         return out
     raise SmokeFailure("the profiler saw no device time, or an uneven count "
                        "of kernels")
+
+
+def launch_split(calls: list, labels: list, forms: list) -> None:
+    """Each call's device ms by launch of ``SPLIT_LAUNCHES`` (anything else,
+    such as the weights' casts, as "other"), printed and stored in its
+    form's ``launch_ms``.  One profiler session a call: the weights' casts
+    launch more kernels at some widths than at others."""
+    for label, row, call in zip(labels, forms, calls):
+        by = device_ms_by_kernel([call])[0]
+        split: dict = {}
+        for kernel, ms in by.items():
+            key = next((n for n in SPLIT_LAUNCHES if n in kernel), "other")
+            split[key] = split.get(key, 0.0) + ms
+        row["launch_ms"] = split
+        print(f"  {label}: device ms by launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +436,7 @@ def check_layer_tail(gen: torch.Generator, b: int = 4) -> dict:
 
 
 def _henc_form(layer, b: int, t: int, per_group: int,
-               gen: torch.Generator) -> dict:
+               gen: torch.Generator) -> tuple:
     from audio_to_sheet_music_tpu_torch.models import htdemucs
     from audio_to_sheet_music_tpu_torch.ops import fused_enc
 
@@ -415,11 +460,12 @@ def _henc_form(layer, b: int, t: int, per_group: int,
     nbytes = 2.0 * (b * cin * f * t + b * c * fo * t)
     row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
     _print_times(row)
-    return row
+    return row, x
 
 
-def check_henc(gen: torch.Generator) -> dict:
+def check_henc(gen: torch.Generator, profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.models import htdemucs
+    from audio_to_sheet_music_tpu_torch.ops import fused_enc
 
     print("henc_freq_fused (B, 4, 2048, T) -> C=48, bf16:")
     print(f"  tolerance: {HENC_TOL['reason']}")
@@ -427,8 +473,14 @@ def check_henc(gen: torch.Generator) -> dict:
     for blk in layer.dconv.layers:      # raise the 1e-3 LayerScale init
         blk.scale.scale.data.fill_(0.5)
     layer = layer.to("cuda").requires_grad_(False)
-    forms = [_henc_form(layer, 4, 259, 1, gen),     # one serving group
-             _henc_form(layer, 1, 1292, 0, gen)]    # one 30 s chunk
+    forms, inputs = zip(_henc_form(layer, 4, 259, 1, gen),   # a serving group
+                        _henc_form(layer, 1, 1292, 0, gen))  # one 30 s chunk
+    forms = list(forms)
+    if profile:
+        with torch.inference_mode():
+            launch_split([lambda x=x: fused_enc.henc_freq_fused(layer, x)
+                          for x in inputs],
+                         [f"B={f['B']} T={f['T']}" for f in forms], forms)
     return _kernel_entry(
         "henc_freq_fused", "audio_to_sheet_music_tpu_torch/csrc/henc_freq.cu",
         "audio_to_sheet_music_tpu/ops/pallas_enc.py:173", forms,
@@ -459,14 +511,14 @@ def _kernel_entry(name: str, source: str, replaces: str, forms: list,
             "per": per, "forms": forms}
 
 
-def check_dconv(gen: torch.Generator) -> dict:
+def check_dconv(gen: torch.Generator, profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.models import htdemucs
     from audio_to_sheet_music_tpu_torch.ops import fused_dconv
 
     print(f"dconv_rows (rows, C, T={TRAIN_T}) at freq layers 1-3 of a "
           f"batch of {TRAIN_B}, bf16:")
     print(f"  tolerance: {HENC_TOL['reason']}")
-    forms = []
+    forms, inputs = [], []
     for rows, c in DCONV_FORMS:
         d = htdemucs.DConv(c, gen)
         for blk in d.layers:            # raise the 1e-3 LayerScale init
@@ -495,6 +547,13 @@ def check_dconv(gen: torch.Generator) -> dict:
         row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
         _print_times(row)
         forms.append(row)
+        inputs.append((d, x))
+    if profile:
+        with torch.inference_mode():
+            launch_split([lambda d=d, x=x: fused_dconv.dconv_rows(d, x)
+                          for d, x in inputs],
+                         [f"rows={f['rows']} C={f['C']}" for f in forms],
+                         forms)
     return _kernel_entry(
         "dconv_rows", "audio_to_sheet_music_tpu_torch/csrc/dconv_rows.cu",
         "audio_to_sheet_music_tpu/ops/pallas_dconv.py:199", forms,
@@ -981,8 +1040,8 @@ def main(argv: list) -> int:
         compiled = check_build(sources)
 
         gen = torch.Generator().manual_seed(SEED)
-        kernels = [check_layer_tail(gen), check_henc(gen),
-                   check_dconv(gen), check_attn_block(gen, profile),
+        kernels = [check_layer_tail(gen), check_henc(gen, profile),
+                   check_dconv(gen, profile), check_attn_block(gen, profile),
                    check_stft(gen)]
         path = run_path(profile)
         training = run_training(profile)

@@ -11,12 +11,16 @@ and ragged sequences, one key, single rows, odd T, a frame count off the
 kernel's frame block), the flash launch's tile edges (S at and one past a
 128-key tile, L one 64-row query tile, grids of more blocks than the card
 has SMs), the four serving forms at B = 4, a
-30 s chunk through ``henc_freq_fused``, and the refusals (a tensor that
-requires grad, a wrong dtype); ``chip_smoke.py`` covers the paths' own
+30 s chunk through ``henc_freq_fused``, the DConv routine over the T and C
+edges of its tiles (T around the 64-frame tile, C whose hidden C/8 is
+padded to the MMA's 16, the widest C it takes) and in place, and the
+refusals (a tensor that requires grad, a wrong dtype, rows wider than the
+DConv routine holds); ``chip_smoke.py`` covers the paths' own
 shapes.  Tolerances are those of ``chip_smoke.py``,
 for the same reasons: a few bf16 output steps for ``layer_tail`` and
-``attn_block``, one or two for the f32-inside ``henc_freq_fused`` and
-``dconv_rows``, and an f32 FFT's rounding for ``stft``.
+``attn_block``, two for ``henc_freq_fused`` and ``dconv_rows`` (f32 inside
+but for their bf16 conv operands, which the plain versions round alike),
+and an f32 FFT's rounding for ``stft``.
 """
 
 from __future__ import annotations
@@ -173,17 +177,14 @@ def _dconv(c, gen):
     return d.cuda()
 
 
-@pytest.mark.parametrize("r,c,t", [
-    (16, 32, 1),         # one frame (not C = 8: one hidden channel by one
-                         # frame normalises a single value, where the plain
-                         # GroupNorm's fused affine loses the f32 digits)
-    (3, 96, 33),         # a ragged second tile
-    (5, 48, 70),
-    (2, 384, 259),       # layer 3's width
-])
-def test_dconv_rows_matches_plain(gen, r, c, t):
+# T: one frame, either side of 32 and of the routine's 64-frame tile, a 6 s
+# segment, a 30 s chunk; C: H = 2 (padded to the MMA's 16), 12 (padded),
+# 24, 48
+@pytest.mark.parametrize("t", [1, 31, 33, 63, 64, 65, 259, 1292])
+@pytest.mark.parametrize("c", [16, 96, 192, fused_dconv.MAX_CHANNELS])
+def test_dconv_rows_matches_plain(gen, c, t):
     d = _dconv(c, gen)
-    x = torch.randn((r, c, t), generator=gen).to("cuda", torch.bfloat16)
+    x = torch.randn((3, c, t), generator=gen).to("cuda", torch.bfloat16)
     before = fused_dconv.dconv_rows.launches
     with torch.inference_mode():
         got = fused_dconv.dconv_rows(d, x)
@@ -192,6 +193,72 @@ def test_dconv_rows_matches_plain(gen, r, c, t):
     assert fused_dconv.dconv_rows.launches == before + 1
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     _close(got, want, 2 * 2.0 ** -8, 2.0 ** -9)
+
+
+@pytest.mark.parametrize("c", [16, 96, 192, fused_dconv.MAX_CHANNELS])
+def test_libraries_pad_the_hidden_as_the_tiling_model(gen, c):
+    """Both libraries pad C/8 to the MMA's 16, as the CPU model of the
+    tiling (tests/test_torch_fused_dconv.py) assumes."""
+    want = -(-(c // 8) // 16) * 16
+    assert fused_dconv._lib().dconv_rows_hidden_pad(c) == want
+    assert fused_enc._lib().henc_freq_hidden_pad(c) == want
+
+
+def test_henc_at_the_widest_channels(gen):
+    """C = MAX_CHANNELS runs the DConv routine at its widest rows."""
+    c = fused_dconv.MAX_CHANNELS
+    layer = htdemucs.HEncLayer(4, c, freq=True, gen=gen)
+    for blk in layer.dconv.layers:
+        blk.scale.scale.data.fill_(0.5)
+        blk.norm1.bias.data.normal_(generator=gen)
+    layer = layer.cuda()
+    x = torch.randn((1, 4, 32, 70), generator=gen).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        got = fused_enc.henc_freq_fused(layer, x)
+        want = fused_enc.henc_freq_plain(layer, x)
+    torch.cuda.synchronize()
+    _close(got, want, 2 * 2.0 ** -8, 2.0 ** -9)
+
+
+def test_dconv_routine_refuses_rows_wider_than_it_holds(gen):
+    """C past MAX_CHANNELS does not fit conv1's shared memory: both
+    wrappers refuse it before the launch."""
+    c = fused_dconv.MAX_CHANNELS + 8
+    d = _dconv(c, gen)
+    x = torch.randn((2, c, 40), generator=gen).to("cuda", torch.bfloat16)
+    with pytest.raises(ValueError, match="at most"), torch.no_grad():
+        fused_dconv.dconv_rows(d, x)
+    layer = htdemucs.HEncLayer(4, c, freq=True, gen=gen).cuda()
+    x = torch.randn((1, 4, 32, 40), generator=gen).to("cuda", torch.bfloat16)
+    with pytest.raises(ValueError, match="at most"), torch.no_grad():
+        fused_enc.henc_freq_fused(layer, x)
+
+
+@pytest.mark.parametrize("which", ["dconv_rows", "henc_freq_fused"])
+def test_dconv_routine_in_place_is_repeatable(gen, which):
+    """Block 1 of ``dconv_rows`` reads the f32 scratch block 0 wrote, and
+    ``henc_freq_fused`` runs both blocks in place on its f32 ``y``: over
+    many tiles with a ragged last one, two launches agree bit for bit and
+    match the plain version."""
+    if which == "dconv_rows":
+        mod = _dconv(96, gen)
+        x = torch.randn((5, 96, 301), generator=gen).to("cuda", torch.bfloat16)
+        fn, plain = fused_dconv.dconv_rows, fused_dconv.dconv_rows_plain
+    else:
+        mod = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+        for blk in mod.dconv.layers:
+            blk.scale.scale.data.fill_(0.5)
+            blk.norm1.bias.data.normal_(generator=gen)
+        mod = mod.cuda()
+        x = torch.randn((2, 4, 64, 301), generator=gen).to("cuda",
+                                                           torch.bfloat16)
+        fn, plain = fused_enc.henc_freq_fused, fused_enc.henc_freq_plain
+    with torch.inference_mode():
+        a, b = fn(mod, x), fn(mod, x)
+        want = plain(mod, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, want, 2 * 2.0 ** -8, 2.0 ** -9)
 
 
 def _block_args(b, l, s, d, gen):

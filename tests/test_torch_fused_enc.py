@@ -20,7 +20,7 @@ from audio_to_sheet_music_tpu.models import htdemucs as JH
 from audio_to_sheet_music_tpu.ops import pallas_enc
 from audio_to_sheet_music_tpu_torch.convert import jax_params
 from audio_to_sheet_music_tpu_torch.models import htdemucs as TH
-from audio_to_sheet_music_tpu_torch.ops import fused_enc
+from audio_to_sheet_music_tpu_torch.ops import fused_dconv, fused_enc
 
 TOL = 1e-5
 
@@ -98,3 +98,38 @@ def test_supports_and_profitable():
     assert not fused_enc.supports(4, 44, 2048, 259)  # C/8 not whole
     assert fused_enc.profitable(4)
     assert not fused_enc.profitable(48)
+
+
+@pytest.mark.parametrize("cout", [fused_dconv.MAX_CHANNELS,
+                                  fused_dconv.MAX_CHANNELS + 8, 512])
+def test_supports_stops_at_the_dconv_routine_width(cout):
+    """The JAX test, and C no wider than the CUDA DConv routine takes."""
+    want = (pallas_enc.supports(4, cout, 256, 100)
+            and cout <= fused_dconv.MAX_CHANNELS)
+    assert pallas_enc.supports(4, cout, 256, 100)
+    assert fused_enc.supports(4, cout, 256, 100) == want
+
+
+def test_plain_rounds_only_the_dconv_operands_on_bf16_input():
+    """On bf16 input the plain version rounds the DConv's conv operands to
+    bf16 (the kernel's routine takes them so) and keeps the strided conv and
+    the rewrite in f32 (the kernel's stages for them are f32 FMAs)."""
+    _, m = _layer_pair(10, 4, 16)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (1, 4, 32, 40)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = fused_enc.henc_freq_plain(m, x)
+        y = torch.nn.functional.gelu(torch.nn.functional.conv2d(
+            x.float(), m.conv.weight, m.conv.bias, stride=(4, 1),
+            padding=(2, 0)))
+        b, c, f, t = y.shape
+        r = fused_dconv.dconv_rows_plain(
+            m.dconv, y.permute(0, 2, 1, 3).reshape(b * f, c, t),
+            dot_dtype=torch.bfloat16)
+        y = r.reshape(b, f, c, t).permute(0, 2, 1, 3)
+        want = torch.nn.functional.glu(torch.nn.functional.conv2d(
+            y, m.rewrite.weight, m.rewrite.bias), dim=1).to(torch.bfloat16)
+        f32_dconv = fused_enc.henc_freq_plain(m, x, dot_dtype=torch.float32)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert not torch.equal(got, f32_dconv)
