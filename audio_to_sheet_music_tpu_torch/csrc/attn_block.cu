@@ -19,8 +19,9 @@
 // launches of the building blocks layer_tail.cu uses (attn_common.cuh): the
 // flash-attention launch (TMA K/V ring, wgmma for Q Kᵀ and P V, online
 // softmax in the accumulator registers), one block per (query tile, head,
-// batch row), into a bf16 scratch; then the 64x64-tile mma.sync GEMM with
-// the out-projection epilogue (+ bo, · γ, + the bf16 residual, bf16 out).
+// batch row), into a bf16 scratch; then the GEMM (128 x 128 tiles fed by a
+// TMA ring, two wgmma consumer warpgroups) with the out-projection
+// epilogue (+ bo, · γ, + the bf16 residual, bf16 out).
 //
 // The query tile is 64 rows, one consumer warpgroup (attn_common.cuh:flash
 // says why).

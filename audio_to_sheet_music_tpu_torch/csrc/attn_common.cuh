@@ -1,11 +1,42 @@
 // Attention building blocks shared by layer_tail.cu and attn_block.cu.
 //
+// Replaces the products of audio_to_sheet_music_tpu/ops/pallas_attn.py:
+// layer_tail (_layer_kernel) and attn_block (_attn_kernel); layer_tail.cu
+// and attn_block.cu say how each is composed from these two launches.
+//
 // - gemm_kernel / gemm: out (M, N) = epilogue(a (M, K) @ wᵀ + bias) with w in
-//   torch layout (N, K), bf16 operands and f32 accumulation; 64x64 block
-//   tiles over 32-deep K slices double-buffered in shared memory with
-//   cp.async, mma.sync m16n8k16, padded shared rows so fragment reads are
-//   conflict-free.  N must be a multiple of 64 and K of 32; rows past M read
-//   as zero and are not written.
+//   torch layout (N, K), bf16 operands and f32 sums, on Hopper's
+//   asynchronous units.
+//   What bounds it: products and bytes about equally.  layer_tail's four
+//   GEMMs at the freq self form of a serving group (M = 4 x 2072 = 8288,
+//   D 512, FF 2048) are 20 M D² = 43.5 GFLOP, 0.044 ms at the bf16 tensor
+//   peak, against ~157 MB that the four launches read and write once each
+//   (the (M, 2048) bf16 hidden and the f32 y1 are most of it), 0.047 ms at
+//   the memory rate: ~280 FLOP a byte, the card's ridge (FF1 above it, the
+//   out-projection at half of it).  The first GEMM (64 x 64 tiles of
+//   mma.sync over cp.async double buffers, 4 warps) ran near 11 % of the
+//   tensor peak; only wgmma reaches the rest.
+//   Design: one block per 128 x 128 output tile (grid ceil(M/128) x
+//   ceil(N/128)), K in 64-wide slices, one 128-byte swizzle row of bf16.
+//   One producer warp keeps A and W tiles in flight by TMA (the flash
+//   launch's tensor maps with one batch row: K innermost, box 64 x 128, the
+//   128-byte swizzle; rows past M or N and columns past K arrive
+//   zero-filled) into a three-stage ring of 32 KB
+//   stages on full / empty mbarriers.  Two consumer warpgroups each own 64
+//   rows x 128 columns in 64 f32 registers a thread: a K slice is four
+//   wgmma m64n128k16 with both operands read from shared memory through
+//   the same B128 descriptors as the flash launch's S = Q Kᵀ (W (N, K) is
+//   K-major as K (S, 64) is), 32 bytes further a k16 step.  One wgmma group
+//   stays in flight while the next slice's wait runs; a stage goes back to
+//   the producer when the group that read it is done.  Three stages (97 KB)
+//   and 288 threads at ≤ 112 registers leave two blocks an SM, so one
+//   block's epilogue overlaps the other's products.  The epilogue reads
+//   the accumulators in mma.sync's per-warp layout (row g + 8 hr, column
+//   2 t + 8 j), adds the bias and applies one of five epilogues, skipping
+//   rows ≥ M and columns ≥ N: N need only be a multiple of 8 (a partial
+//   128-column tile works) and K a multiple of 8 (16-byte TMA strides).
+//   Not done: persistent blocks, clusters with multicast W tiles, a TMA
+//   store of the result.
 // - flash_kernel / flash: o = per head softmax(q kᵀ · scale) v with 64-wide
 //   heads, on Hopper's asynchronous units.  One block per (64-row query
 //   tile, head, batch row): one consumer warpgroup and one producer warp
@@ -59,53 +90,27 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 128;         // 4 warps per GEMM block; a warpgroup
 constexpr int DH = 64;          // head width: one 128-byte row a head
 constexpr int KT = 128;         // keys per streamed K / V tile (the S
                                 // product is wgmma m64n128k16)
 constexpr int STAGES = 2;       // K / V ring depth
 constexpr int ROW_BYTES = DH * 2;
-constexpr int BM = 64, BN = 64, BK = 32;   // GEMM block tile
-constexpr int GLD = BK + 8;     // padded shared row of a GEMM tile
+constexpr int GM = 128, GN = 128;   // GEMM block tile
+constexpr int GK = 64;          // GEMM K slice: one 128-byte swizzle row
+constexpr int GSTAGES = 3;      // GEMM ring depth
+constexpr int GTILE = GM * GK * 2;  // bytes of an A or a W tile (GM == GN)
+constexpr int GEMM_THREADS = 2 * 128 + 32;  // two consumer warpgroups and
+                                            // one producer warp
+static_assert(GK == DH && GM == GN, "the GEMM loads head_map's boxes");
 
 // bf16 out = acc + bias; bf16 out = gelu(acc + bias); f32 out = bf16 res +
 // gamma (acc + bias); bf16 out = f32 res + gamma (acc + bias); bf16 out =
 // bf16 res + gamma (acc + bias).
 enum Epilogue { EPI_BIAS, EPI_GELU, EPI_RES_F32, EPI_RES_BF16, EPI_RES_X };
 
-// d (16x8 f32) += a (16x16 bf16, row-major) · b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // 2^x by the special-function unit (2 ulp; -inf gives +0)
@@ -123,120 +128,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-}
-
-// out (M, N) = epilogue(a (M, K) @ wᵀ + bias); w (N, K) in torch layout.
-// Grid (ceil(M/BM), N/BN); 4 warps, each a 32x32 piece of the 64x64 tile.
-// N is a multiple of BN and K of BK; rows of a past M read as zero.
-template <int EPI>
-__global__ void __launch_bounds__(NT)
-gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-            const float* __restrict__ bias, const float* __restrict__ gamma,
-            const void* __restrict__ res, void* __restrict__ out, int M, int N,
-            int K) {
-  __shared__ __align__(16) bf16 as[2][BM * GLD];
-  __shared__ __align__(16) bf16 ws[2][BN * GLD];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  auto load = [&](int stage, int k0) {
-    for (int i = threadIdx.x; i < BM * BK / 8; i += NT) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int m = m0 + r;
-      cp_async16(&as[stage][r * GLD + c],
-                 a + (size_t)(m < M ? m : 0) * K + k0 + c, m < M);
-      cp_async16(&ws[stage][r * GLD + c], w + (size_t)(n0 + r) * K + k0 + c,
-                 true);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  const int nk = K / BK;
-  load(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load((kt + 1) & 1, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* A = as[kt & 1];
-    const bf16* W = ws[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bf16* p = A + (wm + i * 16 + g) * GLD + kk + 2 * t;
-        af[i][0] = ld32(p);
-        af[i][1] = ld32(p + 8 * GLD);
-        af[i][2] = ld32(p + 8);
-        af[i][3] = ld32(p + 8 * GLD + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* p = W + (wn + j * 8 + g) * GLD + kk + 2 * t;
-        bfr[j][0] = ld32(p);
-        bfr[j][1] = ld32(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma16816(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();                 // this stage is refilled next round
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + wm + i * 16 + g + hr * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * t;
-        const size_t off = (size_t)m * N + n;
-        float v0 = acc[i][j][2 * hr] + bias[n];
-        float v1 = acc[i][j][2 * hr + 1] + bias[n + 1];
-        if constexpr (EPI == EPI_BIAS) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
-              __floats2bfloat162_rn(v0, v1);
-        } else if constexpr (EPI == EPI_GELU) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
-              __floats2bfloat162_rn(gelu_erf(v0), gelu_erf(v1));
-        } else if constexpr (EPI == EPI_RES_F32) {
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-              static_cast<const bf16*>(res) + off);
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + off) =
-              make_float2(__bfloat162float(r.x) + gamma[n] * v0,
-                          __bfloat162float(r.y) + gamma[n + 1] * v1);
-        } else if constexpr (EPI == EPI_RES_BF16) {
-          const float2 r = *reinterpret_cast<const float2*>(
-              static_cast<const float*>(res) + off);
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
-              __floats2bfloat162_rn(r.x + gamma[n] * v0,
-                                    r.y + gamma[n + 1] * v1);
-        } else {
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-              static_cast<const bf16*>(res) + off);
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
-              __floats2bfloat162_rn(__bfloat162float(r.x) + gamma[n] * v0,
-                                    __bfloat162float(r.y) + gamma[n + 1] * v1);
-        }
-      }
-    }
 }
 
 // --- Hopper primitives: mbarriers, TMA, wgmma ------------------------------
@@ -318,8 +209,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // keep the compiler from moving accesses of r across the asynchronous mma
@@ -457,7 +350,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_ss_n128(sacc, sw128_desc(qa + kk * 32, 16),
                     sw128_desc(ka + kk * 32, 16), kk);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs<KT / 2>(sacc);
 
     // online softmax in base 2 on the accumulator registers
@@ -514,7 +407,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_rs_n64_tb(oacc, pf[kc], sw128_desc(va + kc * 16 * ROW_BYTES, 1024),
                       1);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs<DH / 2>(oacc);
     mbar_arrive(empty(s));             // this thread is done with stage s
   }
@@ -536,6 +429,117 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
       *reinterpret_cast<__nv_bfloat162*>(o + ((size_t)b * L + rb) * D + c) =
           __floats2bfloat162_rn(oacc[4 * j + 2] * invb,
                                 oacc[4 * j + 3] * invb);
+  }
+}
+
+// out (M, N) = epilogue(a (M, K) @ wᵀ + bias); w (N, K) in torch layout,
+// both read through head_map tensor maps of one batch row, ta over (M, K)
+// and tw over (N, K), with 64 x 128 boxes.  Grid (ceil(M / GM),
+// ceil(N / GN)); warps 0-7 are the two consumer warpgroups (rows 64 wg ..
+// 64 wg + 63 of the tile), warp 8 the producer.  Thread (w4, g, t) of a
+// warpgroup holds acc[4 j + e] = row 16 w4 + g + 8 (e >> 1), column
+// 8 j + 2 t + (e & 1).
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+gemm_kernel(const __grid_constant__ CUtensorMap ta,
+            const __grid_constant__ CUtensorMap tw,
+            const float* __restrict__ bias, const float* __restrict__ gamma,
+            const void* __restrict__ res, void* __restrict__ out, int M, int N,
+            int K) {
+  extern __shared__ uint8_t smem_raw[];
+  // TMA with the 128-byte swizzle wants 1024-byte aligned tiles
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto a_s = [&](int s) { return base + s * 2 * GTILE; };
+  auto w_s = [&](int s) { return base + s * 2 * GTILE + GTILE; };
+  const uint32_t bars = base + GSTAGES * 2 * GTILE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (GSTAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
+  const int nk = (K + GK - 1) / GK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {                     // the producer warp
+    if (lane == 0) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % GSTAGES;
+        if (t >= GSTAGES) mbar_wait(empty(s), ((t / GSTAGES) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * GTILE);
+        tma_load_3d(a_s(s), &ta, t * GK, m0, 0, full(s));
+        tma_load_3d(w_s(s), &tw, t * GK, n0, 0, full(s));
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 rows x 128 columns
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, t4 = lane & 3;
+  float acc[GN / 2];
+#pragma unroll
+  for (int i = 0; i < GN / 2; ++i) acc[i] = 0.0f;
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % GSTAGES;
+    mbar_wait(full(s), (t / GSTAGES) & 1);
+    fence_regs<GN / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)     // 16 columns of K = 32 bytes
+      wgmma_ss_n128(acc, sw128_desc(a_s(s) + wg * 64 * 128 + kk * 32, 16),
+                    sw128_desc(w_s(s) + kk * 32, 16), 1);
+    wgmma_commit();
+    wgmma_wait<1>();                   // slice t - 1's group is done
+    fence_regs<GN / 2>(acc);
+    if (t > 0) mbar_arrive(empty((t - 1) % GSTAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs<GN / 2>(acc);
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = m0 + wg * 64 + w4 * 16 + g + 8 * hr;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t4;
+      if (n >= N) continue;            // N is even: so is n + 1 < N
+      const size_t off = (size_t)m * N + n;
+      const float v0 = acc[4 * j + 2 * hr] + bias[n];
+      const float v1 = acc[4 * j + 2 * hr + 1] + bias[n + 1];
+      if constexpr (EPI == EPI_BIAS) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+            __floats2bfloat162_rn(v0, v1);
+      } else if constexpr (EPI == EPI_GELU) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+            __floats2bfloat162_rn(gelu_erf(v0), gelu_erf(v1));
+      } else if constexpr (EPI == EPI_RES_F32) {
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
+            static_cast<const bf16*>(res) + off);
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off) =
+            make_float2(__bfloat162float(r.x) + gamma[n] * v0,
+                        __bfloat162float(r.y) + gamma[n + 1] * v1);
+      } else if constexpr (EPI == EPI_RES_BF16) {
+        const float2 r = *reinterpret_cast<const float2*>(
+            static_cast<const float*>(res) + off);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+            __floats2bfloat162_rn(r.x + gamma[n] * v0,
+                                  r.y + gamma[n + 1] * v1);
+      } else {
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
+            static_cast<const bf16*>(res) + off);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+            __floats2bfloat162_rn(__bfloat162float(r.x) + gamma[n] * v0,
+                                  __bfloat162float(r.y) + gamma[n + 1] * v1);
+      }
+    }
   }
 }
 
@@ -606,12 +610,22 @@ cudaError_t flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
   return cudaGetLastError();
 }
 
+// The GEMM launch: N and K multiples of 8, any M.
 template <int EPI>
 cudaError_t gemm(const bf16* a, const bf16* w, const float* bias,
                  const float* gamma, const void* res, void* out, int M, int N,
                  int K, cudaStream_t st) {
-  const dim3 grid((M + BM - 1) / BM, N / BN);
-  gemm_kernel<EPI><<<grid, NT, 0, st>>>(a, w, bias, gamma, res, out, M, N, K);
+  CUtensorMap ma, mw;
+  if (M < 1 || N < 8 || N % 8 || K < 8 || K % 8 ||
+      !head_map(&ma, a, 1, M, K, GM) || !head_map(&mw, w, 1, N, K, GN))
+    return cudaErrorInvalidValue;
+  const int smem = 1024 + GSTAGES * 2 * GTILE + 8 * 2 * GSTAGES;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + GM - 1) / GM, (N + GN - 1) / GN);
+  gemm_kernel<EPI><<<grid, GEMM_THREADS, smem, st>>>(ma, mw, bias, gamma, res,
+                                                     out, M, N, K);
   return cudaGetLastError();
 }
 

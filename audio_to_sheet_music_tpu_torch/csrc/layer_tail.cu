@@ -14,9 +14,12 @@
 // projected (the K/V projection needs the whole memory stream and stays
 // outside, as it does in the JAX package).
 //
-// What bounds it on an H100: the products.  At the 6 s serving chunk a freq
-// self layer is ~19.7 GFLOP per chunk against ~10 MB of operands, far above
-// the card's ~295 FLOP/byte ridge, so the bound is the bf16 tensor-core rate.
+// What bounds it on an H100: the products, with the bytes close behind.
+// At the freq self form of a serving group (B 4, L = S = 2072) the layer is
+// ~78 GFLOP (35 of attention, 43.5 of the four GEMMs): 0.079 ms at the
+// bf16 tensor peak.  Its own operands and result are ~48 MB, but the six
+// launches below read and write ~215 MB between them, 0.064 ms at the
+// memory rate.
 //
 // Design.  The Pallas kernel keeps the whole K/V row (2 x 2.1 MB at S=2072)
 // and all weights (~5 MB) resident in VMEM; a Hopper block has 227 KB, and
@@ -33,22 +36,23 @@
 //   4. ln_kernel: LayerNorm of y1, one warp a row          -> bf16 scratch
 //   5. gemm_kernel: u = gelu_erf(ln @ W1ᵀ + b1)            -> bf16 (M, FF)
 //   6. gemm_kernel: out = y1 + γ2 · (u @ W2ᵀ + b2)          -> bf16
-// The GEMMs are 64x64 block tiles over 32-deep K slices double-buffered in
-// shared memory with cp.async.  Every product is mma.sync m16n8k16 bf16 with
-// f32 accumulation, and padded shared-memory rows make the fragment reads
-// conflict-free; the attention is wgmma with P from registers.  wgmma and
-// TMA for the GEMMs and fusing FF1 into FF2 are later work.  GELU
-// is the exact erf form (the Pallas polynomial was a Mosaic workaround).
-// The unnormalised probabilities are rounded to bf16 before the P·V product
-// and divided by the f32 running sum afterwards; the plain version rounds
-// the normalised probabilities.  Both are bf16-rounding-grade.  The GEMM
-// and the flash-attention launch live in attn_common.cuh, shared with
-// attn_block.cu.
+// Every product is wgmma with f32 accumulators.  The GEMMs are 128 x 128
+// output tiles fed by TMA through a three-stage ring, two consumer
+// warpgroups and a producer warp (attn_common.cuh says why); the attention
+// takes P from registers.  GELU is the exact erf form (the Pallas
+// polynomial was a Mosaic workaround).  The unnormalised probabilities are
+// rounded to bf16 before the P·V product and divided by the f32 running sum
+// afterwards; the plain version rounds the normalised probabilities.  Both
+// are bf16-rounding-grade.  Not done: FF1 fused into FF2 (the hidden's
+// ~68 MB round trip), the LayerNorm in the out-projection's epilogue, the
+// K/V projection folded in (it stays a torch matmul, as the JAX package
+// leaves it to XLA).
 
 #include "attn_common.cuh"
 
 namespace {
 
+constexpr int NT = 128;         // LayerNorm block: 4 warps, a row each
 constexpr int MAX_D = 512;      // LayerNorm row held in registers, 16 a lane
 
 // out (M, D) bf16 = LayerNorm(y (M, D) f32) with f32 two-pass statistics;

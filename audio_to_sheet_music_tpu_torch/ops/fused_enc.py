@@ -17,8 +17,13 @@ henc_freq_fused`` (Pallas body ``_kernel``, with the DConv math of
   the design does about it) or raises; a CPU tensor takes
   ``henc_freq_plain``.  ``henc_freq_fused.launches`` counts kernel launches.
 - ``henc_freq_plain``: the same function in PyTorch ops, computed in f32
-  like the kernel (bf16 in, f32 inside, input dtype out); its DConv part
-  rounds its conv operands to ``dot_dtype`` as the kernel's routine does.
+  like the kernel (bf16 in, f32 sums and intermediates, input dtype out),
+  with the operands of every product (the strided conv, the DConv's two
+  convolutions, the rewrite) rounded to ``dot_dtype``: bf16 for bf16 input,
+  the JAX ``_kernel``'s rule and what the kernel's tensor-core products
+  take.
+- ``top_weights``: the conv and rewrite weights cast and zero-padded once
+  a call into the layout the kernel reads.
 - ``profitable`` and ``supports``: the layers and shapes the model sends
   here, the JAX package's tests.
 """
@@ -73,18 +78,22 @@ def henc_freq_plain(layer, x: torch.Tensor,
     """``(B, Cin, F, T) -> (B, C, F/4, T)`` in PyTorch ops, f32 inside.
 
     ``dot_dtype`` (default: ``default_dot_dtype`` of ``x``) rounds the
-    operands of the DConv part's convolutions only.  The strided conv and
-    the rewrite stay f32, because the CUDA kernel's stages for them are
-    still f32 FMAs."""
-    xf = x.float()
-    y = F.gelu(F.conv2d(xf, layer.conv.weight.float(), layer.conv.bias.float(),
-                        stride=(STRIDE, 1), padding=(PAD, 0)))
+    operands of every product, as the JAX ``_kernel`` does
+    (``pallas_enc.py:150``: ``wc`` to the input's dtype; ``:164-165``: ``wr``
+    and y to ``dot_dtype``; the DConv's through ``_block_body``): x and
+    ``wc``, the DConv's, then ``wr`` and the DConv's output y.  Every sum,
+    bias, GELU, statistic and GLU stays f32."""
+    dot = dot_dtype or default_dot_dtype(x.dtype)
+    rnd = lambda t: t.float().to(dot).float()  # noqa: E731
+    y = F.gelu(F.conv2d(rnd(x), rnd(layer.conv.weight),
+                        layer.conv.bias.float(), stride=(STRIDE, 1),
+                        padding=(PAD, 0)))
     b, c, f, t = y.shape
     r = dconv_rows_plain(layer.dconv,
-                         y.permute(0, 2, 1, 3).reshape(b * f, c, t),
-                         dot_dtype or default_dot_dtype(x.dtype))
+                         y.permute(0, 2, 1, 3).reshape(b * f, c, t), dot)
     y = r.reshape(b, f, c, t).permute(0, 2, 1, 3)
-    z = F.conv2d(y, layer.rewrite.weight.float(), layer.rewrite.bias.float())
+    z = F.conv2d(rnd(y), rnd(layer.rewrite.weight),
+                 layer.rewrite.bias.float())
     return F.glu(z, dim=1).to(x.dtype)
 
 
@@ -96,10 +105,28 @@ def _lib() -> ctypes.CDLL:
         lib.henc_freq_launch.restype = i
         lib.henc_freq_part_floats.argtypes = [i, i, i]
         lib.henc_freq_part_floats.restype = ctypes.c_size_t
-        lib.henc_freq_hidden_pad.argtypes = [i]
-        lib.henc_freq_hidden_pad.restype = i
+        for fn in (lib.henc_freq_hidden_pad, lib.henc_freq_conv_depth,
+                   lib.henc_freq_channel_pad):
+            fn.argtypes = [i]
+            fn.restype = i
         lib._bound = True
     return lib
+
+
+def top_weights(layer, device, what: str, kp: int, cp: int) -> list:
+    """The conv and rewrite weights in the layout and types
+    ``csrc/henc_freq.cu`` reads: ``wc`` as bf16 ``(C, kp)`` (column
+    ``ci * 8 + kf``), ``bc`` f32, ``wr`` as bf16 ``(2C, cp)``, ``br`` f32;
+    the columns past ``Cin * 8`` and ``C`` zero, to the widths the library
+    asks for (``henc_freq_conv_depth``, ``henc_freq_channel_pad``)."""
+    wc, bc, wr, br = (build.f32(w, device, what) for w in (
+        layer.conv.weight, layer.conv.bias, layer.rewrite.weight,
+        layer.rewrite.bias))
+    wc = wc.reshape(wc.shape[0], -1)                 # from (C, Cin, 8, 1)
+    wr = wr.reshape(wr.shape[0], -1)                 # from (2C, C, 1, 1)
+    pad = lambda w, n: F.pad(w, (0, n - w.shape[1])).to(  # noqa: E731
+        torch.bfloat16).contiguous()
+    return [pad(wc, kp), bc, pad(wr, cp), br]
 
 
 def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
@@ -133,8 +160,10 @@ def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"henc_freq_fused: unsupported shape {(b, cin, f, t)} "
                          f"-> C={c} (C at most {MAX_CHANNELS})")
     dev = x.device
-    weights = [build.f32(w, dev, "henc_freq_fused") for w in top_w]
     lib = _lib()
+    weights = top_weights(layer, dev, "henc_freq_fused",
+                          lib.henc_freq_conv_depth(cin),
+                          lib.henc_freq_channel_pad(c))
     dw = kernel_weights(layer.dconv, dev, "henc_freq_fused",
                         lib.henc_freq_hidden_pad(c))
     dw_ptrs = (ctypes.c_void_p * 18)(*(w.data_ptr() for w in dw))

@@ -9,12 +9,14 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    five kernels built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
    csrc``, one process per source, all at once; each kernel's registers
    and spills (``ptxas -v``), the count of ``HGMMA`` (wgmma) instructions
-   in the flash-attention launch of the ``attn_block`` and ``layer_tail``
-   libraries, and of ``HMMA`` (mma.sync) instructions in each launch of the
-   DConv routine (``conv1_kernel``, ``conv2_stats_kernel``,
-   ``apply_kernel``) of the ``dconv_rows`` and ``henc_freq`` libraries
-   (``cuobjdump -sass``); a count of 0, a missing or failing
-   ``cuobjdump``, or a library without the launch fails the phase.
+   in the flash-attention launch and in every GEMM launch of the
+   ``attn_block`` and ``layer_tail`` libraries, and of ``HMMA`` (mma.sync)
+   instructions in each launch of the DConv routine (``conv1_kernel``,
+   ``conv2_stats_kernel``, ``apply_kernel``) of the ``dconv_rows`` and
+   ``henc_freq`` libraries and in ``henc_freq``'s ``henc_conv_kernel`` and
+   ``henc_rewrite_kernel`` (``cuobjdump -sass``); a count of 0, a missing
+   or failing ``cuobjdump``, or a library without the launch fails the
+   phase.
 2. Kernels against their plain PyTorch versions, at the shapes their path
    gives them: ``layer_tail`` in its four forms for one group of four 6 s
    serving chunks (freq self 2072/2072, time self 1034/1034, freq cross
@@ -47,10 +49,12 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    and per-op selections.
 
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
-``attn_block`` form's device time splits between its flash launch and its
-out-projection GEMM, and each ``henc_freq_fused`` and ``dconv_rows`` form's
-between the DConv routine's three launches and ``henc_freq_fused``'s conv
-and rewrite (profiler kernel names); after phase 3, one more
+``layer_tail`` form's device time splits between its six launches (Q GEMM,
+flash, out-projection GEMM, LayerNorm, FF1, FF2, each with its rate and
+bound), how each ``attn_block`` form's splits between its flash launch and
+its out-projection GEMM, and each ``henc_freq_fused`` and ``dconv_rows``
+form's between the DConv routine's three launches and
+``henc_freq_fused``'s conv and rewrite (profiler kernel names); after phase 3, one more
 ``separate_all_pcm`` under ``torch.profiler`` (device time by kernel group
 and the device's busy share) and one timed sweep on the per-op path
 (``Separator(kernels=False)``), the rate the kernels have to beat; and in
@@ -115,12 +119,12 @@ LAYER_TOL = {"max_rel": 4 * 2.0 ** -8, "rms_rel": 2.0 ** -8, "reason": (
     "as the plain version does, but sums in another order and rounds the "
     "probabilities before normalising them")}
 HENC_TOL = {"max_rel": 2 * 2.0 ** -8, "rms_rel": 2.0 ** -9, "reason": (
-    "2 bf16 steps of max|ref|, 1/2 of rms(ref): both round the DConv's "
-    "conv operands to bf16 and work in f32 otherwise; the f32 summation "
+    "2 bf16 steps of max|ref|, 1/2 of rms(ref): both round the operands of "
+    "their products to bf16 and work in f32 otherwise; the f32 summation "
     "order differs, which can flip the bf16 rounding of an operand near a "
-    "boundary (a hidden value, or block 1's input: ~0.4 output steps at "
-    "most, tests/test_torch_fused_dconv.py), and so can the final bf16 "
-    "rounding")}
+    "boundary (a hidden value, y before the rewrite, or block 1's input: "
+    "~0.4 output steps at most, tests/test_torch_fused_dconv.py), and so "
+    "can the final bf16 rounding")}
 STFT_TOL = {"max_rel": 1e-4, "rms_rel": 1e-5, "reason": (
     "1e-4 of max|ref|, 1e-5 of rms(ref): both are f32 FFTs (radix-16/8 "
     "Stockham here, cuFFT in the plain version), whose rounding grows as "
@@ -266,9 +270,19 @@ def sass_counts(name: str, pick: str, instr: str) -> dict:
 DCONV_LAUNCHES = ("conv1_kernel", "conv2_stats_kernel", "apply_kernel")
 
 
+# henc_freq_fused's own stages, each a product on mma.sync tiles
+HENC_LAUNCHES = ("henc_conv_kernel", "henc_rewrite_kernel")
+
 # the launches a DConv form's device time is split into under --profile:
 # the routine's, then henc_freq_fused's own conv and rewrite
-SPLIT_LAUNCHES = DCONV_LAUNCHES + ("henc_conv_kernel", "henc_rewrite_kernel")
+SPLIT_LAUNCHES = DCONV_LAUNCHES + HENC_LAUNCHES
+
+# layer_tail's six launches in order (csrc/layer_tail.cu), by the profiler's
+# kernel name: each GEMM is its own epilogue's instance of gemm_kernel
+TAIL_LAUNCHES = [("q_gemm", "gemm_kernel<0>"), ("flash", "flash_kernel"),
+                 ("out_proj_gemm", "gemm_kernel<2>"),
+                 ("layernorm", "ln_kernel"), ("ff1_gemm", "gemm_kernel<1>"),
+                 ("ff2_gemm", "gemm_kernel<3>")]
 
 
 def check_build(sources: list) -> dict:
@@ -286,21 +300,30 @@ def check_build(sources: list) -> dict:
                   "stores/loads")
     hgmma = {}
     for name in ("attn_block", "layer_tail"):
-        hgmma[name] = sass_counts(name, "flash_kernel", "HGMMA")
-        print(f"  {name}: HGMMA (wgmma) instructions in the flash launch: "
-              f"{hgmma[name]}")
-        if min(hgmma[name].values()) == 0:
-            raise SmokeFailure(f"{name}: the flash launch issues no wgmma")
+        hgmma[name] = {}
+        for launch, what in (("flash_kernel", "flash launch"),
+                             ("gemm_kernel", "GEMM launch")):
+            counts = sass_counts(name, launch, "HGMMA")
+            print(f"  {name}: HGMMA (wgmma) instructions in the {what}: "
+                  f"{counts}")
+            if min(counts.values()) == 0:
+                raise SmokeFailure(f"{name}: a {what} issues no wgmma")
+            hgmma[name].update(counts)
     hmma = {}
-    for name in ("dconv_rows", "henc_freq"):
-        hmma[name] = sass_counts(name, "dconv", "HMMA")
-        print(f"  {name}: HMMA (mma.sync) instructions in the DConv "
-              f"routine: {hmma[name]}")
-        for launch in DCONV_LAUNCHES:
-            counts = [c for n, c in hmma[name].items() if launch in n]
-            if not counts or min(counts) == 0:
+    for name, pick, launches in (
+            ("dconv_rows", "dconv", DCONV_LAUNCHES),
+            ("henc_freq", "dconv", DCONV_LAUNCHES),
+            ("henc_freq", "henc_", HENC_LAUNCHES)):
+        counts = sass_counts(name, pick, "HMMA")
+        print(f"  {name}: HMMA (mma.sync) instructions in "
+              f"{'the DConv routine' if pick == 'dconv' else 'its own stages'}"
+              f": {counts}")
+        for launch in launches:
+            found = [c for n, c in counts.items() if launch in n]
+            if not found or min(found) == 0:
                 raise SmokeFailure(f"{name}: a {launch} issues no mma.sync "
                                    "(or there is none)")
+        hmma.setdefault(name, {}).update(counts)
     return {"ptxas": ptxas, "hgmma": hgmma, "hmma": hmma}
 
 
@@ -403,12 +426,53 @@ def _layer_work(b: int, l: int, s: int) -> tuple:
     return flops, float(nbytes)
 
 
-def check_layer_tail(gen: torch.Generator, b: int = 4) -> dict:
+def _tail_launch_work(b: int, l: int, s: int) -> dict:
+    """Operations and bytes (each input read once, each output written
+    once) of each of layer_tail's six launches."""
+    m = b * l
+    return {"q_gemm": (2.0 * m * D * D, 2.0 * (2 * m * D + D * D)),
+            "flash": (4.0 * b * l * s * D, 2.0 * (2 * m * D + 2 * b * s * D)),
+            "out_proj_gemm": (2.0 * m * D * D,
+                              2.0 * (2 * m * D + D * D) + 4.0 * m * D),
+            "layernorm": (8.0 * m * D, 4.0 * m * D + 2.0 * m * D),
+            "ff1_gemm": (2.0 * m * D * FF, 2.0 * (m * D + D * FF + m * FF)),
+            "ff2_gemm": (2.0 * m * D * FF,
+                         2.0 * (m * FF + D * FF + m * D) + 4.0 * m * D)}
+
+
+def tail_split(forms: list, inputs: list) -> None:
+    """Each layer_tail form's device ms by launch (``TAIL_LAUNCHES``), with
+    each launch's rate and bound, printed and stored in the form's
+    ``launch_ms``; one profiler session over all forms (every call launches
+    the same six kernels)."""
+    from audio_to_sheet_music_tpu_torch.ops import fused_attn
+
+    with torch.inference_mode():
+        per_form = device_ms_by_kernel(
+            [lambda a=a: fused_attn.layer_tail(*a, HEADS) for a in inputs])
+    for row, by in zip(forms, per_form):
+        split: dict = {}
+        for kernel, ms in by.items():
+            key = next((n for n, frag in TAIL_LAUNCHES if frag in kernel),
+                       "other")
+            split[key] = split.get(key, 0.0) + ms
+        work = _tail_launch_work(row["B"], row["L"], row["S"])
+        row["launch_ms"] = split
+        row["launch_bound_ms"] = {k: bound(*work[k], BF16_TENSOR_FLOPS)[
+            "bound_ms"] for k in work}
+        print(f"  {row['form']}: device ms by launch: " + ", ".join(
+            f"{k} {v:.4f}" + (f" ({work[k][0] / v / 1e9:.0f} TFLOP/s, bound "
+                              f"{row['launch_bound_ms'][k]:.4f})"
+                              if k in work and k != "layernorm" else "")
+            for k, v in split.items()))
+
+
+def check_layer_tail(gen: torch.Generator, profile: bool, b: int = 4) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import fused_attn
 
     print("layer_tail (B=4, D=512, FF=2048, 8 heads, bf16):")
     print(f"  tolerance: {LAYER_TOL['reason']}")
-    forms = []
+    forms, inputs = [], []
     for name, l, s, per_group in LAYER_FORMS + [RAGGED]:
         args = _layer_inputs(b, l, s, gen)
         with torch.inference_mode():
@@ -428,6 +492,9 @@ def check_layer_tail(gen: torch.Generator, b: int = 4) -> dict:
                    **bound(*_layer_work(b, l, s), BF16_TENSOR_FLOPS)}
         _print_times(row)
         forms.append(row)
+        inputs.append(args)
+    if profile:
+        tail_split(forms, inputs)
     return _kernel_entry(
         "layer_tail", "audio_to_sheet_music_tpu_torch/csrc/layer_tail.cu",
         "audio_to_sheet_music_tpu/ops/pallas_attn.py:269", forms,
@@ -1040,7 +1107,7 @@ def main(argv: list) -> int:
         compiled = check_build(sources)
 
         gen = torch.Generator().manual_seed(SEED)
-        kernels = [check_layer_tail(gen), check_henc(gen, profile),
+        kernels = [check_layer_tail(gen, profile), check_henc(gen, profile),
                    check_dconv(gen, profile), check_attn_block(gen, profile),
                    check_stft(gen)]
         path = run_path(profile)

@@ -10,16 +10,17 @@ They cover the shapes the serving and training paths do not reach (short
 and ragged sequences, one key, single rows, odd T, a frame count off the
 kernel's frame block), the flash launch's tile edges (S at and one past a
 128-key tile, L one 64-row query tile, grids of more blocks than the card
-has SMs), the four serving forms at B = 4, a
-30 s chunk through ``henc_freq_fused``, the DConv routine over the T and C
-edges of its tiles (T around the 64-frame tile, C whose hidden C/8 is
-padded to the MMA's 16, the widest C it takes) and in place, and the
-refusals (a tensor that requires grad, a wrong dtype, rows wider than the
+has SMs), the GEMM's edges (a partial 128-column tile, M off the 128-row
+tile), the four serving forms at B = 4, the henc conv's K chunks and
+channel slices, a 30 s chunk through ``henc_freq_fused``, the DConv
+routine over the T and C edges of its tiles (T around the 64-frame tile,
+C whose hidden C/8 is padded to the MMA's 16, the widest C it takes) and
+in place, and the refusals (a tensor that requires grad, a wrong dtype, rows wider than the
 DConv routine holds); ``chip_smoke.py`` covers the paths' own
 shapes.  Tolerances are those of ``chip_smoke.py``,
 for the same reasons: a few bf16 output steps for ``layer_tail`` and
-``attn_block``, two for ``henc_freq_fused`` and ``dconv_rows`` (f32 inside
-but for their bf16 conv operands, which the plain versions round alike),
+``attn_block``, two for ``henc_freq_fused`` and ``dconv_rows`` (f32 sums
+over bf16 product operands, which the plain versions round alike),
 and an f32 FFT's rounding for ``stft``.
 """
 
@@ -79,6 +80,9 @@ FLASH_EDGES = [
     (40, 128, 200),              # L two query tiles; 640 blocks
     (24, 300, 257),              # 24 x 8 heads x 5 tiles: 960 blocks
 ]
+# (B, L, S, D, FF) at the GEMM's edges: D = 192 and FF = 320 end in a
+# 64-column part of a 128-wide N tile, and M = B L off the 128-row tile
+GEMM_EDGES = [(1, 130, 7, 192, 320), (3, 257, 200, 384, 1536)]
 # the four serving forms of one group of four 6 s chunks
 SERVING_FORMS = [(4, 2072, 2072), (4, 1034, 1034), (4, 2072, 1034),
                  (4, 1034, 2072)]
@@ -89,7 +93,8 @@ SERVING_FORMS = [(4, 2072, 2072), (4, 1034, 1034), (4, 2072, 1034),
     (2, 63, 65, 512, 2048),      # both sides off the 64-row tile
     (1, 130, 7, 128, 256),       # narrow model, fewer keys than a tile
     (3, 64, 200, 256, 1024),
-] + [(b, l, s, 512, 2048) for b, l, s in FLASH_EDGES + SERVING_FORMS])
+] + GEMM_EDGES + [(b, l, s, 512, 2048) for b, l, s in FLASH_EDGES +
+                  SERVING_FORMS])
 def test_layer_tail_matches_plain(gen, b, l, s, d, ff):
     args = _layer_args(b, l, s, d, ff, gen)
     before = fused_attn.layer_tail.launches
@@ -114,6 +119,8 @@ def test_layer_tail_refuses_f32_on_the_card(gen):
     (2, 4, 48, 256, 130),
     (1, 2, 16, 32, 300),
     (4, 4, 48, 2048, 259),
+    (1, 12, 96, 32, 70),         # the conv's K in two chunks, C in two slices
+    (2, 4, 40, 64, 65),          # C off the 16-column tile and the pair slice
 ])
 def test_henc_matches_plain(gen, b, cin, c, f, t):
     layer = htdemucs.HEncLayer(cin, c, freq=True, gen=gen)
@@ -198,10 +205,14 @@ def test_dconv_rows_matches_plain(gen, c, t):
 @pytest.mark.parametrize("c", [16, 96, 192, fused_dconv.MAX_CHANNELS])
 def test_libraries_pad_the_hidden_as_the_tiling_model(gen, c):
     """Both libraries pad C/8 to the MMA's 16, as the CPU model of the
-    tiling (tests/test_torch_fused_dconv.py) assumes."""
-    want = -(-(c // 8) // 16) * 16
-    assert fused_dconv._lib().dconv_rows_hidden_pad(c) == want
-    assert fused_enc._lib().henc_freq_hidden_pad(c) == want
+    tiling (tests/test_torch_fused_dconv.py) assumes; ``henc_freq`` pads C
+    and the conv's Cin x 8 taps to 16 as the CPU model of its conv and
+    rewrite (tests/test_torch_fused_enc.py) assumes."""
+    pad16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    assert fused_dconv._lib().dconv_rows_hidden_pad(c) == pad16(c // 8)
+    assert fused_enc._lib().henc_freq_hidden_pad(c) == pad16(c // 8)
+    assert fused_enc._lib().henc_freq_channel_pad(c) == pad16(c)
+    assert fused_enc._lib().henc_freq_conv_depth(c // 8) == pad16(c)
 
 
 def test_henc_at_the_widest_channels(gen):
@@ -276,7 +287,8 @@ def _block_args(b, l, s, d, gen):
     (2, 63, 65, 512),
     (1, 130, 7, 128),
     (3, 64, 200, 256),
-] + [(b, l, s, 512) for b, l, s in FLASH_EDGES + SERVING_FORMS])
+] + [(b, l, s, d) for b, l, s, d, _ in GEMM_EDGES]
+  + [(b, l, s, 512) for b, l, s in FLASH_EDGES + SERVING_FORMS])
 def test_attn_block_matches_plain(gen, b, l, s, d):
     args = _block_args(b, l, s, d, gen)
     before = fused_attn.attn_block.launches

@@ -111,25 +111,110 @@ def test_supports_stops_at_the_dconv_routine_width(cout):
 
 
 def test_plain_rounds_only_the_dconv_operands_on_bf16_input():
-    """On bf16 input the plain version rounds the DConv's conv operands to
-    bf16 (the kernel's routine takes them so) and keeps the strided conv and
-    the rewrite in f32 (the kernel's stages for them are f32 FMAs)."""
+    """On bf16 input the plain version rounds the operands of every product
+    to bf16, the JAX ``_kernel``'s rule: x and the strided conv's weight,
+    the DConv's conv operands, the rewrite's weight and its input y.  Sums
+    and everything between the products stay f32.  With
+    ``dot_dtype=float32`` nothing but the input is bf16, and the result
+    differs; so does the rule that rounds the DConv's operands alone."""
     _, m = _layer_pair(10, 4, 16)
     x = torch.from_numpy(np.random.default_rng(11).standard_normal(
         (1, 4, 32, 40)).astype(np.float32)).to(torch.bfloat16)
-    with torch.no_grad():
-        got = fused_enc.henc_freq_plain(m, x)
-        y = torch.nn.functional.gelu(torch.nn.functional.conv2d(
-            x.float(), m.conv.weight, m.conv.bias, stride=(4, 1),
-            padding=(2, 0)))
+    rnd = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    conv2d, gelu = torch.nn.functional.conv2d, torch.nn.functional.gelu
+
+    def layer(rnd_top):
+        y = gelu(conv2d(rnd_top(x.float()), rnd_top(m.conv.weight),
+                        m.conv.bias, stride=(4, 1), padding=(2, 0)))
         b, c, f, t = y.shape
         r = fused_dconv.dconv_rows_plain(
             m.dconv, y.permute(0, 2, 1, 3).reshape(b * f, c, t),
             dot_dtype=torch.bfloat16)
         y = r.reshape(b, f, c, t).permute(0, 2, 1, 3)
-        want = torch.nn.functional.glu(torch.nn.functional.conv2d(
-            y, m.rewrite.weight, m.rewrite.bias), dim=1).to(torch.bfloat16)
-        f32_dconv = fused_enc.henc_freq_plain(m, x, dot_dtype=torch.float32)
+        return torch.nn.functional.glu(conv2d(
+            rnd_top(y), rnd_top(m.rewrite.weight), m.rewrite.bias),
+            dim=1).to(torch.bfloat16)
+
+    with torch.no_grad():
+        got = fused_enc.henc_freq_plain(m, x)
+        want = layer(rnd)
+        dconv_only = layer(lambda t: t.float())
+        f32_dots = fused_enc.henc_freq_plain(m, x, dot_dtype=torch.float32)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want)
-    assert not torch.equal(got, f32_dconv)
+    assert not torch.equal(got, dconv_only)
+    assert not torch.equal(got, f32_dots)
+
+
+@pytest.mark.parametrize("cin,cout,f,t", [
+    (4, 8, 32, 87),
+    (4, 16, 64, 130),
+    (4, 16, 16, 9),
+])
+def test_plain_matches_pallas_interpret_on_bf16_input(cin, cout, f, t):
+    """On bf16 input the plain version computes the JAX kernel's function:
+    the same operands rounded to bf16 (``pallas_enc.py:150, 164-165`` and
+    the DConv's), f32 sums.  Tolerance: 1 bf16 step (2^-8) of max|ref| and
+    2^-11 of rms(ref).  What remains is the f32 summation order, which can
+    flip an intermediate bf16 rounding (y before the DConv or the rewrite, a
+    hidden value) and the output's own.  At (4, 16, 64, 130) this rule
+    measured 0.37 steps and 1.6e-4 of rms(ref); the rule that rounded the
+    DConv's operands alone was 1.47 steps and 3.9e-3 off."""
+    p, m = _layer_pair(cin * 100 + cout + f, cin, cout)
+    x = torch.from_numpy((0.5 * np.random.default_rng(f + t).standard_normal(
+        (2, cin, f, t))).astype(np.float32)).to(torch.bfloat16)
+    ref = np.asarray(pallas_enc.henc_freq_fused(
+        p, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+        interpret=True).astype(jnp.float32))
+    with torch.no_grad():
+        got = fused_enc.henc_freq_fused(m, x)
+    assert got.shape == (2, cout, f // 4, t) and got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - ref)
+    top, rms = np.abs(ref).max(), np.sqrt(np.mean(ref ** 2))
+    assert err.max() <= 2.0 ** -8 * top, (err.max() / top * 2 ** 8)
+    assert np.sqrt(np.mean(err ** 2)) <= 2.0 ** -11 * rms, (
+        np.sqrt(np.mean(err ** 2)) / rms)
+
+
+@pytest.mark.parametrize("cin,cout,f,t", [(4, 48, 32, 70), (2, 16, 16, 9)])
+def test_kernel_weights_model_the_conv_and_rewrite(cin, cout, f, t):
+    """``top_weights`` as ``csrc/henc_freq.cu`` reads them: ``wc`` (C, Kp)
+    and ``wr`` (2C, Cp) bf16 with zero pads.  A numpy model of the kernel's
+    two GEMMs over them (x staged frame-major at column ``ci * 8 + kf`` from
+    input row ``4 fo + kf - 2``, zeros past F; the rewrite's `a` column c
+    and gate column c + C from rows c and C + c) gives the plain version's
+    bf16-operand conv and rewrite, to f32 summation order."""
+    _, m = _layer_pair(20 + cin, cin, cout)
+    kp, cp = -(-cin * 8 // 16) * 16, -(-cout // 16) * 16
+    wc, bc, wr, br = fused_enc.top_weights(m, torch.device("cpu"), "test",
+                                           kp, cp)
+    assert wc.dtype == wr.dtype == torch.bfloat16
+    assert wc.shape == (cout, kp) and wr.shape == (2 * cout, cp)
+    assert not wc[:, cin * 8:].any() and not wr[:, cout:].any()
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy(rng.standard_normal((2, cin, f, t)).astype(
+        np.float32)).to(torch.bfloat16)
+    rnd = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    with torch.no_grad():
+        conv = torch.nn.functional.conv2d(
+            x.float(), rnd(m.conv.weight), m.conv.bias, stride=(4, 1),
+            padding=(2, 0))
+        yv = torch.from_numpy(rng.standard_normal((2, cout, f // 4, t)).astype(
+            np.float32))
+        rew = torch.nn.functional.conv2d(rnd(yv), rnd(m.rewrite.weight),
+                                         m.rewrite.bias)
+    xs = np.zeros((2, f // 4, t, kp), np.float32)   # (b, fo) rows: (T, Kp)
+    xn = x.float().numpy()
+    for fo in range(f // 4):
+        for k in range(cin * 8):
+            fi = 4 * fo + k % 8 - 2
+            if 0 <= fi < f:
+                xs[:, fo, :, k] = xn[:, k // 8, fi, :]
+    model = xs @ wc.float().numpy().T + bc.numpy()   # (b, fo, t, C)
+    np.testing.assert_allclose(model.transpose(0, 3, 1, 2), conv.numpy(),
+                               atol=1e-5, rtol=1e-5)
+    ys = np.zeros((2, f // 4, t, cp), np.float32)
+    ys[..., :cout] = rnd(yv).numpy().transpose(0, 2, 3, 1)
+    z = ys @ wr.float().numpy().T + br.numpy()       # (b, fo, t, 2C)
+    np.testing.assert_allclose(z.transpose(0, 3, 1, 2), rew.numpy(),
+                               atol=1e-5, rtol=1e-5)
