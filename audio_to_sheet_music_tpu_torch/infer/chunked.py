@@ -9,12 +9,16 @@ Counterpart of ``audio_to_sheet_music_tpu/infer/chunked.py``:
 4. ``overlap_add_weighted`` — linear cross-fade accumulate, then division
    by the clamped weight sum (the reference's weighting: ones with
    ``linspace`` fades over ``overlap`` samples).
+
+``separate_chunked`` runs all four for a chunk-batched model; everything
+stays on the song's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -97,3 +101,23 @@ def overlap_add_weighted(chunks: torch.Tensor, grid: ChunkGrid, overlap: int,
         return acc, wsum
     out = acc / torch.clamp(wsum, min=1e-8)[None, :]
     return out[:, : grid.length]
+
+
+def separate_chunked(forward_fn: Callable[[torch.Tensor], torch.Tensor],
+                     mixture: torch.Tensor, segment: int, overlap: int,
+                     bucket: int = 8, chunk_batch: int | None = None
+                     ) -> torch.Tensor:
+    """Separate a whole ``(C, T)`` song through a chunk-batched model.
+
+    ``forward_fn`` maps ``(B, C, segment)`` chunks to ``(B, C', segment)``.
+    ``chunk_batch`` caps the chunks a call takes (``None``: all at once);
+    the last call takes what is left.  Padded bucket chunks carry zero
+    overlap-add weight.  Returns ``(C', T)`` on the song's device."""
+    grid = plan_chunks(int(mixture.shape[-1]), segment, overlap, bucket)
+    chunks = frame_song(mixture, grid)
+    n = grid.n_chunks
+    step = n if chunk_batch is None else chunk_batch
+    outs = torch.cat([forward_fn(chunks[i:i + step])
+                      for i in range(0, n, step)])
+    valid = (torch.arange(n, device=mixture.device) * grid.hop) < grid.length
+    return overlap_add_weighted(outs, grid, overlap, valid)

@@ -44,6 +44,19 @@ def set_precision_flags() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def open_device(device: str | torch.device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``.  ``cuda`` needs a card (``who``
+    names the caller that raises without one) and sets
+    ``set_precision_flags``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: device 'cuda' requested but "
+                               "torch.cuda.is_available() is False")
+        set_precision_flags()
+    return device
+
+
 def _to_float_song(song: torch.Tensor) -> torch.Tensor:
     """int16 PCM -> f32 in [-1, 1) on the song's device; f32 passes."""
     if song.dtype == torch.int16:
@@ -70,12 +83,7 @@ class Separator:
         default selection, ``"opt_in"``, or ``False`` for the encoder layer
         by layer in PyTorch ops, the yardstick the kernels are timed
         against)."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("Separator: device 'cuda' requested but "
-                                   "torch.cuda.is_available() is False")
-            set_precision_flags()
+        self.device = open_device(device, "Separator")
         self.model = model.to(self.device)
         self.sample_rate = sample_rate
         self.segment = int(segment_seconds * sample_rate)

@@ -28,6 +28,7 @@ selection.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any, Dict, List
 
@@ -126,6 +127,14 @@ def init_tiny(seed: int = 0, materialize: bool = True) -> AudioTextHTDemucs:
                           t_layers=2, gen=gen),
         clap_text.ClapText(num_layers=2, hidden=128, gen=gen),
         Head(decoder_channels=(32, 16, 8, 8, 4), gen=gen))
+
+
+def init_from_env(seed: int = 0) -> AudioTextHTDemucs:
+    """``init_tiny`` under ``ATSM_TINY_MODEL=1`` (command-line runs at test
+    size), else ``init``: the JAX ``atht.init_from_env``."""
+    if os.environ.get("ATSM_TINY_MODEL") == "1":
+        return init_tiny(seed)
+    return init(seed)
 
 
 def graft_head(model: AudioTextHTDemucs, path: str | Path = DEFAULT_HEAD

@@ -1,10 +1,12 @@
-"""HTDemucs encode path in PyTorch.
+"""HTDemucs in PyTorch.
 
 Counterpart of ``audio_to_sheet_music_tpu/models/htdemucs.py``: the frozen
-42 M-param tower's dual encoders and cross-domain transformer.  The modules
-hold the full tower's parameters under the torch checkpoint names
-(decoder layers included, so a whole checkpoint loads strictly); the
-functions below compute the encode path the serving forward runs:
+42 M-param tower's dual encoders, cross-domain transformer and decoders.
+The modules hold the full tower's parameters under the torch checkpoint
+names; the functions below compute the encode path the serving forward
+runs (``encode``) and the whole 4-source tower the HTDemucs baseline runs
+(``forward``: ``encode``, then 4 freq and 4 time ``HDecLayer``s, the CaC
+mask and the iSTFT, plus the time branch).  The encode path is:
 
 - 4 frequency ``HEncLayer``s (Conv2d k=(8,1) s=(4,1), GELU, DConv residual,
   1x1 rewrite + GLU) over the 2048-bin CaC spectrogram, and 4 time
@@ -19,10 +21,11 @@ The hand-written kernels a forward runs are chosen by ``kernels`` (see
 selection freq layer 0 goes through ``ops.fused_enc.henc_freq_fused`` and
 every transformer layer through ``ops.fused_attn.layer_tail``; under
 ``"opt_in"`` the attention of every transformer layer goes through
-``ops.fused_attn.attn_block`` and the freq DConv of layers 1-3 through
-``ops.fused_dconv.dconv_rows``.  ``kernels=False`` computes the same layers
-with per-op PyTorch calls instead; that is the comparison path, not a
-substitute: a kernel that cannot take its input raises.
+``ops.fused_attn.attn_block`` and the freq DConv of encoder layers 1-3
+and of the four freq decoder layers through ``ops.fused_dconv.dconv_rows``.
+``kernels=False`` computes the same layers with per-op PyTorch calls
+instead; that is the comparison path, not a substitute: a kernel that
+cannot take its input raises.
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ class HEncLayer(nn.Module):
 
 
 class HDecLayer(nn.Module):
-    """Decoder layer parameters (the decode path is not ported yet; the
-    parameters are here so a whole tower checkpoint loads strictly)."""
+    """Decoder layer: 3x3 (freq) or k=3 (time) rewrite + GLU, DConv, then
+    the stride-4 transposed conv (``hdec_layer_apply``)."""
 
     def __init__(self, chin: int, chout: int, freq: bool, gen=None):
         super().__init__()
@@ -254,6 +257,33 @@ def henc_layer_apply(layer: HEncLayer, x: torch.Tensor,
         y = dconv_apply(layer.dconv, y)
         z = L.conv1d(layer.rewrite, y)
     return L.glu(z, dim=1)
+
+
+def hdec_layer_apply(layer: HDecLayer, x: torch.Tensor, skip: torch.Tensor,
+                     length: int, freq: bool, last: bool,
+                     kernels: Kernels = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HDecLayer: +skip -> rewrite + GLU -> DConv -> transposed conv -> crop
+    -> GELU (not on the ``last`` layer).  The freq crop drops the 2 bins
+    the transposed conv adds at each end; the time crop keeps ``length``
+    samples.  Returns ``(z, pre)``, ``pre`` being the DConv output, as the
+    reference does.  The freq DConv is routed as the encoder's is."""
+    sel = resolve(kernels)
+    pad = (KERNEL - STRIDE) // 2
+    x = x + skip
+    if freq:
+        y = L.glu(L.conv2d(layer.rewrite, x, padding=(1, 1)), dim=1)
+        y = _dconv_freq(layer.dconv, y, sel)
+        z = L.conv_transpose2d(layer.conv_tr, y, stride=(STRIDE, 1))
+        z = z[..., pad:-pad, :]
+    else:
+        y = L.glu(L.conv1d(layer.rewrite, x, padding=1), dim=1)
+        y = dconv_apply(layer.dconv, y)
+        z = L.conv_transpose1d(layer.conv_tr, y, stride=STRIDE)
+        z = z[..., pad:pad + length]
+    if not last:
+        z = L.gelu(z)
+    return z, y
 
 
 # ---------------------------------------------------------------------------
@@ -439,3 +469,40 @@ def encode(ht: HTDemucs, x: torch.Tensor, xt: torch.Tensor,
     x = L.conv1d(ht.channel_downsampler, x.reshape(b, c2, f * t)).reshape(b, -1, f, t)
     xt = L.conv1d(ht.channel_downsampler_t, xt)
     return x, xt, saved, saved_t, lengths, lengths_t
+
+
+def forward(ht: HTDemucs, mix: torch.Tensor,
+            compute_dtype: torch.dtype | None = None,
+            kernels: Kernels = True) -> torch.Tensor:
+    """The whole 4-source tower: ``(B, 2, T) -> (B, 4 sources, 2, T)`` in
+    ``mix``'s dtype.
+
+    The DSP front end runs in f32 (with the STFT kernel under the ``stft``
+    selection, as ``atht.encode_mixture`` runs it); ``compute_dtype`` casts
+    the tower's inputs after it.  The de-normalisation promotes the
+    decoders' output to f32, so the CaC mask and the iSTFT run in f32.
+    """
+    sel = resolve(kernels)
+    length = mix.shape[-1]
+    _, _, x, xt, mean, std, meant, stdt = normalize_inputs(mix.float(),
+                                                           sel.stft)
+    b, _, fq, tspec = x.shape
+    if compute_dtype is not None:
+        x, xt = x.to(compute_dtype), xt.to(compute_dtype)
+    x, xt, saved, saved_t, lengths, lengths_t = encode(ht, x, xt, sel)
+
+    n_layers = len(ht.decoder)
+    for idx in range(n_layers):
+        last = idx == n_layers - 1
+        x, _ = hdec_layer_apply(ht.decoder[idx], x, saved.pop(),
+                                lengths.pop(), True, last, sel)
+        xt, _ = hdec_layer_apply(ht.tdecoder[idx], xt, saved_t.pop(),
+                                 lengths_t.pop(), False, last, sel)
+
+    n_src = len(SOURCES)
+    x = x.reshape(b, n_src, CAC_CHANNELS, fq, tspec)
+    x = x * std[:, None] + mean[:, None]
+    wav_f = dsp.ispec(dsp.mask_cac(x), length, NFFT, HOP)   # (B, S, 2, T)
+    xt = xt.reshape(b, n_src, AUDIO_CHANNELS, length)
+    xt = xt * stdt[:, None] + meant[:, None]
+    return (wav_f + xt).to(mix.dtype)

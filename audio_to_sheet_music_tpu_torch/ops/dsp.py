@@ -6,7 +6,8 @@
   (2049 -> 2048) and the 2 leading / 2 trailing frames.
 - ``ispec`` — demucs ``HTDemucs._ispec``: restore the Nyquist bin and the
   edge frames, iSTFT, crop back to ``length`` samples.
-- ``magnitude_cac`` — complex-as-channels packing.
+- ``magnitude_cac`` / ``mask_cac`` — complex-as-channels packing and its
+  inverse.
 
 The JAX package lowers the DFT as matmuls for the TPU; here ``torch.stft`` /
 ``torch.istft`` (cuFFT on the card) compute the same transforms, checked
@@ -108,3 +109,11 @@ def magnitude_cac(z: torch.Tensor) -> torch.Tensor:
     b, c, f, t = z.shape
     m = torch.view_as_real(z).permute(0, 1, 4, 2, 3)     # (B, C, 2, F, T)
     return m.reshape(b, c * 2, f, t)
+
+
+def mask_cac(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``magnitude_cac``: real ``(..., 2C, F, T)`` -> complex
+    ``(..., C, F, T)`` (demucs ``HTDemucs._mask`` with ``cac=True``)."""
+    *lead, c2, f, t = m.shape
+    m = m.reshape(*lead, c2 // 2, 2, f, t)
+    return torch.complex(m[..., 0, :, :], m[..., 1, :, :])

@@ -30,7 +30,7 @@ import torch
 
 from ..config import Config
 from ..data import BatchLoader, StemSegmentDataset, discover_tracks
-from ..infer.session import set_precision_flags
+from ..infer.session import open_device
 from ..models import atht
 from ..ops.select import Kernels
 from ..text.prompts import STEM_NAMES
@@ -110,12 +110,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     Pass ``pretrained=True`` with converted real weights: the tokenizer then
     refuses the hash fallback.  ``device`` defaults to ``cuda``.
     """
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("train: device 'cuda' requested but "
-                               "torch.cuda.is_available() is False")
-        set_precision_flags()
+    device = open_device(device, "train")
     if cfg.training.num_workers >= 1:
         raise NotImplementedError(
             "training.num_workers >= 1 selects the C++ segment loader, which "

@@ -25,9 +25,15 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    past the first design's limit of 1076); and for a training batch of
    8 x 6 s, ``dconv_rows`` at freq layers 1-3 (1024 x 96, 256 x 192,
    64 x 384 rows by 259 frames), ``attn_block`` in the four forms at B = 8
-   plus a ragged one, and the STFT kernel at (16, 272384).  Each prints its
-   max and rms error against the stated tolerance, and CUDA-event times for
-   the kernel, the plain version and a PyTorch library call (or
+   plus a ragged one, and the STFT kernel at (16, 272384).  Then each at
+   the eval path's shapes (phase 5: a forward of 16 chunks of 7.8 s):
+   ``layer_tail`` and ``attn_block`` in the four forms at B = 16 (freq
+   self 2688/2688, time self 1344/1344 and the two cross forms),
+   ``henc_freq_fused`` at (16, 4, 2048, 336), ``dconv_rows`` at the freq
+   encoder layers' and decoders' 128 x 384, 512 x 192, 2048 x 96 and
+   8192 x 48 rows by 336 frames, and the STFT at (32, 351232).  Each prints
+   its max and rms error against the stated tolerance, and CUDA-event times
+   for the kernel, the plain version and a PyTorch library call (or
    composition) computing the same function.
 3. The full path: the full-width model (the port's seeded init, seed 0, with
    the committed trained head grafted on) in a ``Separator`` on ``cuda``
@@ -47,6 +53,21 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    and the opt-in loss equals the per-op loss on one batch within what that
    threshold allows; then times warm train steps under the opt-in, default
    and per-op selections.
+5. The eval path: the full-width tower (seeded init, seed 0; the model
+   carries the committed trained head) in an ``HTDemucsBaseline`` on
+   ``cuda`` in bf16 separates the same 60 s song into 4 sources (16 chunks
+   of 7.8 s, 25 % overlap) under each selection (default, opt-in, per-op):
+   once warm, then once timed with every launch counter set to 0 just
+   before and read just after.  ``layer_tail`` and ``henc_freq_fused`` must
+   run under the default selection; under the opt-in one ``dconv_rows``
+   must run in the freq decoders (their launches: an opt-in forward's less
+   its encode's).  The 16-chunk batch through ``htdemucs.forward`` under
+   the default and opt-in selections must be within 1e-3 rms of the per-op
+   one.  Then ``cli benchmark`` on two synthetic 12 s tracks with the three
+   models ("ours", "ours-random", "htdemucs") under the default selection
+   and again per op: the results must have the reference schema, every
+   aggregate a number within the ±30 dB clamp, and each stem's SDR within
+   the loss-gap rule of the per-op one.
 
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
@@ -54,18 +75,23 @@ flash, out-projection GEMM, LayerNorm, FF1, FF2, each with its rate and
 bound), how each ``attn_block`` form's splits between its flash launch and
 its out-projection GEMM, and each ``henc_freq_fused`` and ``dconv_rows``
 form's between the DConv routine's three launches and
-``henc_freq_fused``'s conv and rewrite (profiler kernel names); after phase 3, one more
+``henc_freq_fused``'s conv and rewrite (profiler kernel names), and
+for ``layer_tail``'s eval forms its six launches beside its library
+call's attention kernels and matrix products; after phase 3, one more
 ``separate_all_pcm`` under ``torch.profiler`` (device time by kernel group
 and the device's busy share) and one timed sweep on the per-op path
 (``Separator(kernels=False)``), the rate the kernels have to beat; and in
-phase 4 one opt-in train step under the profiler.
+phase 4 one opt-in train step under the profiler, and in phase 5 one
+default ``HTDemucsBaseline`` sweep under the profiler.
 
 The last three lines of standard output are the card (as ``nvidia-smi``
 prints it), one JSON object with the numbers of every kernel (``launches``
 from the path that runs it: the serving sweep for ``layer_tail`` and
-``henc_freq_fused``, the training run for the other three), and
+``henc_freq_fused``, the training run for the other three; ``eval_*`` the
+same numbers at the eval path's shapes, with ``eval_launches`` from its
+default sweep for the first two and its opt-in sweep for the others), and
 ``{"ok": true, "device": {...}}``.  The same numbers, with each form's and
-the training phase's (and the profile, when asked), are written to
+the training and eval phases' (and the profile, when asked), are written to
 ``build/chip_smoke.json``.
 
 Rates for the bounds are the H100 SXM data sheet's dense peaks: 989 TFLOP/s
@@ -111,6 +137,21 @@ TRAIN_T = 259                      # spectrogram frames of a 6 s segment
 DCONV_FORMS = [(TRAIN_B * 128, 96), (TRAIN_B * 32, 192), (TRAIN_B * 8, 384)]
 # the STFT of a training batch: 2 x 8 rows, 6 s padded for 263 frames
 STFT_ROWS, STFT_T, NFFT, HOP, STFT_FRAMES = 2 * TRAIN_B, 272384, 4096, 1024, 263
+# the eval path (phase 5): the HTDemucs baseline's 7.8 s chunks, 16 of them
+# for a 60 s song (plan_chunks, bucket 8): 8 x 336 freq tokens, 1344 time
+# tokens; layer forms (name, L, S, launches a forward)
+EVAL_SECONDS, EVAL_OVERLAP = 7.8, 0.25
+EVAL_B, EVAL_T = 16, 336
+EVAL_LAYER_FORMS = [("freq_self", 2688, 2688, 3),
+                    ("time_self", 1344, 1344, 3),
+                    ("freq_cross", 2688, 1344, 2),
+                    ("time_cross", 1344, 2688, 2)]
+# dconv_rows in an opt-in forward, (rows, C, launches): freq encoder layers
+# 1-3 and freq decoders 0-2 share three shapes, decoder 3 adds a fourth
+EVAL_DCONV_FORMS = [(EVAL_B * 8, 384, 2), (EVAL_B * 32, 192, 2),
+                    (EVAL_B * 128, 96, 2), (EVAL_B * 512, 48, 1)]
+# the STFT of a chunk batch: 2 x 16 rows, 7.8 s padded for 340 frames
+EVAL_STFT = (2 * EVAL_B, 351232, 340)
 
 # bf16 outputs: one step is 2^-8 of the value.
 LAYER_TOL = {"max_rel": 4 * 2.0 ** -8, "rms_rel": 2.0 ** -8, "reason": (
@@ -467,22 +508,23 @@ def tail_split(forms: list, inputs: list) -> None:
             for k, v in split.items()))
 
 
-def check_layer_tail(gen: torch.Generator, profile: bool, b: int = 4) -> dict:
+def _layer_tail_rows(gen: torch.Generator, b: int, forms: list,
+                     weight: str) -> tuple:
+    """``layer_tail`` against its plain version and its library call in
+    each form ``(name, L, S, launches)`` at batch ``b``: the rows, and the
+    inputs for the launch split."""
     from audio_to_sheet_music_tpu_torch.ops import fused_attn
 
-    print("layer_tail (B=4, D=512, FF=2048, 8 heads, bf16):")
-    print(f"  tolerance: {LAYER_TOL['reason']}")
-    forms, inputs = [], []
-    for name, l, s, per_group in LAYER_FORMS + [RAGGED]:
+    rows, inputs = [], []
+    for name, l, s, n in forms:
         args = _layer_inputs(b, l, s, gen)
         with torch.inference_mode():
             got = fused_attn.layer_tail(*args, HEADS)
             torch.cuda.synchronize()
             want = fused_attn.layer_tail_plain(*args, HEADS)
-            err = compare(f"{name} L={l} S={s}", got, want, LAYER_TOL)
+            err = compare(f"{name} B={b} L={l} S={s}", got, want, LAYER_TOL)
             iters = 10 if l * s > 1e6 else 20
-            row = {"form": name, "B": b, "L": l, "S": s,
-                   "launches_per_group": per_group, **err,
+            row = {"form": name, "B": b, "L": l, "S": s, weight: n, **err,
                    "ms": cuda_ms(lambda: fused_attn.layer_tail(*args, HEADS),
                                  iters),
                    "plain_ms": cuda_ms(
@@ -491,8 +533,16 @@ def check_layer_tail(gen: torch.Generator, profile: bool, b: int = 4) -> dict:
                    "library_ms": cuda_ms(lambda: _layer_library(*args), iters),
                    **bound(*_layer_work(b, l, s), BF16_TENSOR_FLOPS)}
         _print_times(row)
-        forms.append(row)
+        rows.append(row)
         inputs.append(args)
+    return rows, inputs
+
+
+def check_layer_tail(gen: torch.Generator, profile: bool, b: int = 4) -> dict:
+    print(f"layer_tail (B={b}, D=512, FF=2048, 8 heads, bf16):")
+    print(f"  tolerance: {LAYER_TOL['reason']}")
+    forms, inputs = _layer_tail_rows(gen, b, LAYER_FORMS + [RAGGED],
+                                     "launches_per_group")
     if profile:
         tail_split(forms, inputs)
     return _kernel_entry(
@@ -502,7 +552,40 @@ def check_layer_tail(gen: torch.Generator, profile: bool, b: int = 4) -> dict:
         "mean per launch over one group program's 10 launches")
 
 
-def _henc_form(layer, b: int, t: int, per_group: int,
+def library_split(forms: list, inputs: list) -> None:
+    """Each form's library composition (``_layer_library``) by device ms
+    of its attention kernels, its matrix products and the rest, printed
+    and stored in the form's ``library_launch_ms``; one profiler session a
+    form."""
+    for row, args in zip(forms, inputs):
+        with torch.inference_mode():
+            by = device_ms_by_kernel([lambda: _layer_library(*args)])[0]
+        split: dict = {}
+        for kernel, ms in by.items():
+            low = kernel.lower()
+            key = ("attention" if any(k in low for k in ("flash", "fmha",
+                                                         "attention"))
+                   else "matrix products" if any(k in low for k in (
+                       "gemm", "xmma", "cutlass", "nvjet"))
+                   else "other")
+            split[key] = split.get(key, 0.0) + ms
+        row["library_launch_ms"] = split
+        print(f"  {row['form']}: the library's device ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
+
+
+def eval_layer_tail(gen: torch.Generator, profile: bool) -> dict:
+    print("layer_tail, the eval path's forms (a baseline forward of "
+          f"{EVAL_B} chunks of {EVAL_SECONDS} s):")
+    rows, inputs = _layer_tail_rows(gen, EVAL_B, EVAL_LAYER_FORMS,
+                                    "launches_per_forward")
+    if profile:
+        tail_split(rows, inputs)
+        library_split(rows, inputs)
+    return _eval_entry(rows, BF16_TENSOR_FLOPS)
+
+
+def _henc_form(layer, b: int, t: int, weight: str, n: int,
                gen: torch.Generator) -> tuple:
     from audio_to_sheet_music_tpu_torch.models import htdemucs
     from audio_to_sheet_music_tpu_torch.ops import fused_enc
@@ -516,7 +599,7 @@ def _henc_form(layer, b: int, t: int, per_group: int,
         err = compare(f"B={b} F={f} T={t}", got, want, HENC_TOL)
         # the per-op layer in bf16 (cuDNN convolutions): the yardstick
         library = lambda: htdemucs.henc_layer_apply(layer, x, kernels=False)  # noqa: E731
-        row = {"B": b, "T": t, "launches_per_group": per_group, **err,
+        row = {"B": b, "T": t, weight: n, **err,
                "ms": cuda_ms(lambda: fused_enc.henc_freq_fused(layer, x), 20),
                "plain_ms": cuda_ms(lambda: fused_enc.henc_freq_plain(layer, x),
                                    20),
@@ -530,18 +613,24 @@ def _henc_form(layer, b: int, t: int, per_group: int,
     return row, x
 
 
-def check_henc(gen: torch.Generator, profile: bool) -> dict:
+def _henc_layer(gen: torch.Generator):
     from audio_to_sheet_music_tpu_torch.models import htdemucs
+
+    layer = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+    for blk in layer.dconv.layers:      # raise the 1e-3 LayerScale init
+        blk.scale.scale.data.fill_(0.5)
+    return layer.to("cuda").requires_grad_(False)
+
+
+def check_henc(gen: torch.Generator, profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import fused_enc
 
     print("henc_freq_fused (B, 4, 2048, T) -> C=48, bf16:")
     print(f"  tolerance: {HENC_TOL['reason']}")
-    layer = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
-    for blk in layer.dconv.layers:      # raise the 1e-3 LayerScale init
-        blk.scale.scale.data.fill_(0.5)
-    layer = layer.to("cuda").requires_grad_(False)
-    forms, inputs = zip(_henc_form(layer, 4, 259, 1, gen),   # a serving group
-                        _henc_form(layer, 1, 1292, 0, gen))  # one 30 s chunk
+    layer = _henc_layer(gen)
+    group = "launches_per_group"
+    forms, inputs = zip(_henc_form(layer, 4, 259, group, 1, gen),  # a group
+                        _henc_form(layer, 1, 1292, group, 0, gen))  # 30 s
     forms = list(forms)
     if profile:
         with torch.inference_mode():
@@ -553,6 +642,13 @@ def check_henc(gen: torch.Generator, profile: bool) -> dict:
         "audio_to_sheet_music_tpu/ops/pallas_enc.py:173", forms,
         "launches_per_group", BF16_TENSOR_FLOPS,
         "one launch (one group of 4 chunks)")
+
+
+def eval_henc(gen: torch.Generator) -> dict:
+    print("henc_freq_fused, the eval path's form:")
+    row, _ = _henc_form(_henc_layer(gen), EVAL_B, EVAL_T,
+                        "launches_per_forward", 1, gen)
+    return _eval_entry([row], BF16_TENSOR_FLOPS)
 
 
 def _weighted(forms: list, key: str, weight: str) -> float:
@@ -578,43 +674,63 @@ def _kernel_entry(name: str, source: str, replaces: str, forms: list,
             "per": per, "forms": forms}
 
 
-def check_dconv(gen: torch.Generator, profile: bool) -> dict:
+def _eval_entry(forms: list, flop_rate: float) -> dict:
+    """A kernel's numbers at the eval path's forms (phase 5), as
+    ``eval_*``: means per launch over one baseline forward's launches."""
+    entry = _kernel_entry("", "", "", forms, "launches_per_forward",
+                          flop_rate, "")
+    return {"eval_forms": forms, **{
+        f"eval_{k}": entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}}
+
+
+def _dconv_rows(gen: torch.Generator, forms: list, t: int, weight: str
+                ) -> tuple:
+    """``dconv_rows`` against its plain version and the per-op DConv in
+    each form ``(rows, C, launches)`` at ``t`` frames."""
     from audio_to_sheet_music_tpu_torch.models import htdemucs
     from audio_to_sheet_music_tpu_torch.ops import fused_dconv
 
-    print(f"dconv_rows (rows, C, T={TRAIN_T}) at freq layers 1-3 of a "
-          f"batch of {TRAIN_B}, bf16:")
-    print(f"  tolerance: {HENC_TOL['reason']}")
-    forms, inputs = [], []
-    for rows, c in DCONV_FORMS:
+    rows_out, inputs = [], []
+    for rows, c, n in forms:
         d = htdemucs.DConv(c, gen)
         for blk in d.layers:            # raise the 1e-3 LayerScale init
             blk.scale.scale.data.fill_(0.5)
             blk.norm1.bias.data.normal_(generator=gen)
             blk.norm2.bias.data.normal_(generator=gen)
         d = d.to("cuda").requires_grad_(False)
-        x = torch.randn((rows, c, TRAIN_T), generator=gen).to(
-            "cuda", torch.bfloat16)
+        x = torch.randn((rows, c, t), generator=gen).to("cuda", torch.bfloat16)
         with torch.inference_mode():
             got = fused_dconv.dconv_rows(d, x)
             torch.cuda.synchronize()
             want = fused_dconv.dconv_rows_plain(d, x)
-            err = compare(f"rows={rows} C={c}", got, want, HENC_TOL)
+            err = compare(f"rows={rows} C={c} T={t}", got, want, HENC_TOL)
             # the per-op DConv in bf16 (cuDNN convolutions, GroupNorm)
-            row = {"rows": rows, "C": c, "T": TRAIN_T, "launches_per_step": 1,
-                   **err,
+            row = {"rows": rows, "C": c, "T": t, weight: n, **err,
                    "ms": cuda_ms(lambda: fused_dconv.dconv_rows(d, x), 20),
                    "plain_ms": cuda_ms(
                        lambda: fused_dconv.dconv_rows_plain(d, x), 20),
                    "library_ms": cuda_ms(
                        lambda: htdemucs.dconv_apply(d, x), 20)}
         h = c // 8
-        flops = 2.0 * rows * TRAIN_T * 2 * (3 * c * h + 2 * c * h)
-        nbytes = 2.0 * 2 * rows * c * TRAIN_T
+        flops = 2.0 * rows * t * 2 * (3 * c * h + 2 * c * h)
+        nbytes = 2.0 * 2 * rows * c * t
         row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
         _print_times(row)
-        forms.append(row)
+        rows_out.append(row)
         inputs.append((d, x))
+    return rows_out, inputs
+
+
+def check_dconv(gen: torch.Generator, profile: bool) -> dict:
+    from audio_to_sheet_music_tpu_torch.ops import fused_dconv
+
+    print(f"dconv_rows (rows, C, T={TRAIN_T}) at freq layers 1-3 of a "
+          f"batch of {TRAIN_B}, bf16:")
+    print(f"  tolerance: {HENC_TOL['reason']}")
+    forms, inputs = _dconv_rows(gen, [(r, c, 1) for r, c in DCONV_FORMS],
+                                TRAIN_T, "launches_per_step")
     if profile:
         with torch.inference_mode():
             launch_split([lambda d=d, x=x: fused_dconv.dconv_rows(d, x)
@@ -628,6 +744,14 @@ def check_dconv(gen: torch.Generator, profile: bool) -> dict:
         "mean per launch over one train step's 3 launches")
 
 
+def eval_dconv(gen: torch.Generator) -> dict:
+    print(f"dconv_rows, the eval path's forms (T={EVAL_T}; freq encoder "
+          "layers 1-3 and freq decoders 0-3 of an opt-in baseline forward):")
+    rows, _ = _dconv_rows(gen, EVAL_DCONV_FORMS, EVAL_T,
+                          "launches_per_forward")
+    return _eval_entry(rows, BF16_TENSOR_FLOPS)
+
+
 def _block_library(q, k, v, x, wo, bo, g):
     """The attention block as PyTorch library calls in bf16
     (``scaled_dot_product_attention``, cuBLAS): the yardstick only."""
@@ -639,24 +763,24 @@ def _block_library(q, k, v, x, wo, bo, g):
     return x + g.to(dt) * F.linear(a, wo, bo.to(dt))
 
 
-def check_attn_block(gen: torch.Generator, profile: bool) -> dict:
+def _attn_block_rows(gen: torch.Generator, b: int, forms: list,
+                     weight: str) -> tuple:
+    """``attn_block`` against its plain version and its library calls in
+    each form ``(name, L, S, launches)`` at batch ``b``."""
     from audio_to_sheet_music_tpu_torch.ops import fused_attn
 
-    b = TRAIN_B
-    print(f"attn_block (B={b}, D=512, 8 heads, bf16):")
-    print(f"  tolerance: {LAYER_TOL['reason']}")
-    forms, inputs = [], []
-    for name, l, s, per_group in LAYER_FORMS + [RAGGED]:
+    rows, inputs = [], []
+    for name, l, s, n in forms:
         full = _layer_inputs(b, l, s, gen)
         args = [full[0], full[1], full[2], full[3], full[6], full[7], full[8]]
+        del full
         with torch.inference_mode():
             got = fused_attn.attn_block(*args, HEADS)
             torch.cuda.synchronize()
             want = fused_attn.attn_block_plain(*args, HEADS)
-            err = compare(f"{name} L={l} S={s}", got, want, LAYER_TOL)
+            err = compare(f"{name} B={b} L={l} S={s}", got, want, LAYER_TOL)
             iters = 5 if l * s > 1e6 else 10
-            row = {"form": name, "B": b, "L": l, "S": s,
-                   "launches_per_step": per_group, **err,
+            row = {"form": name, "B": b, "L": l, "S": s, weight: n, **err,
                    "ms": cuda_ms(lambda: fused_attn.attn_block(*args, HEADS),
                                  iters),
                    "plain_ms": cuda_ms(
@@ -668,8 +792,18 @@ def check_attn_block(gen: torch.Generator, profile: bool) -> dict:
                        + 4 * 2 * D + 2 * b * l * D)
         row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
         _print_times(row)
-        forms.append(row)
+        rows.append(row)
         inputs.append(args)
+    return rows, inputs
+
+
+def check_attn_block(gen: torch.Generator, profile: bool) -> dict:
+    from audio_to_sheet_music_tpu_torch.ops import fused_attn
+
+    print(f"attn_block (B={TRAIN_B}, D=512, 8 heads, bf16):")
+    print(f"  tolerance: {LAYER_TOL['reason']}")
+    forms, inputs = _attn_block_rows(gen, TRAIN_B, LAYER_FORMS + [RAGGED],
+                                     "launches_per_step")
     if profile:
         with torch.inference_mode():
             per_form = device_ms_by_kernel(
@@ -692,38 +826,59 @@ def check_attn_block(gen: torch.Generator, profile: bool) -> dict:
         "mean per launch over one train step's 10 launches")
 
 
-def check_stft(gen: torch.Generator) -> dict:
+def eval_attn_block(gen: torch.Generator) -> dict:
+    print("attn_block, the eval path's forms (an opt-in baseline forward of "
+          f"{EVAL_B} chunks):")
+    rows, _ = _attn_block_rows(gen, EVAL_B, EVAL_LAYER_FORMS,
+                               "launches_per_forward")
+    return _eval_entry(rows, BF16_TENSOR_FLOPS)
+
+
+def _stft_row(gen: torch.Generator, n_rows: int, t: int, frames: int,
+              weight: str) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import fused_stft
 
-    print(f"stft ({STFT_ROWS}, {STFT_T}) f32, n_fft {NFFT}, hop {HOP}, "
-          f"{STFT_FRAMES} frames:")
-    print(f"  tolerance: {STFT_TOL['reason']}")
-    x = torch.randn((STFT_ROWS, STFT_T), generator=gen).cuda()
+    x = torch.randn((n_rows, t), generator=gen).cuda()
     win = fused_stft.hann(NFFT, "cuda")
     # the per-op path's call (cuFFT), unnormalised: the yardstick
     library = lambda: torch.stft(x, NFFT, HOP, window=win, win_length=NFFT,  # noqa: E731
                                  center=False, normalized=False,
                                  return_complex=True)
     with torch.inference_mode():
-        got = fused_stft.stft(x, NFFT, HOP, STFT_FRAMES)
+        got = fused_stft.stft(x, NFFT, HOP, frames)
         torch.cuda.synchronize()
-        want = fused_stft.stft_plain(x, NFFT, HOP, STFT_FRAMES)
-        err = compare(f"rows={STFT_ROWS} T={STFT_T}", torch.view_as_real(got),
+        want = fused_stft.stft_plain(x, NFFT, HOP, frames)
+        err = compare(f"rows={n_rows} T={t}", torch.view_as_real(got),
                       torch.view_as_real(want), STFT_TOL)
-        row = {**err, "launches_per_step": 1,
-               "ms": cuda_ms(lambda: fused_stft.stft(x, NFFT, HOP,
-                                                     STFT_FRAMES), 20),
+        row = {"rows": n_rows, "T": t, "frames": frames, **err, weight: 1,
+               "ms": cuda_ms(lambda: fused_stft.stft(x, NFFT, HOP, frames),
+                             20),
                "plain_ms": cuda_ms(lambda: fused_stft.stft_plain(
-                   x, NFFT, HOP, STFT_FRAMES), 20),
+                   x, NFFT, HOP, frames), 20),
                "library_ms": cuda_ms(library, 20)}
-    flops = 2.5 * NFFT * math.log2(NFFT) * STFT_ROWS * STFT_FRAMES
-    nbytes = 4.0 * STFT_ROWS * STFT_T + 8.0 * STFT_ROWS * (NFFT // 2 + 1) * STFT_FRAMES
+    flops = 2.5 * NFFT * math.log2(NFFT) * n_rows * frames
+    nbytes = 4.0 * n_rows * t + 8.0 * n_rows * (NFFT // 2 + 1) * frames
     row.update(bound(flops, nbytes, F32_FLOPS))
     _print_times(row)
+    return row
+
+
+def check_stft(gen: torch.Generator) -> dict:
+    print(f"stft ({STFT_ROWS}, {STFT_T}) f32, n_fft {NFFT}, hop {HOP}, "
+          f"{STFT_FRAMES} frames:")
+    print(f"  tolerance: {STFT_TOL['reason']}")
+    row = _stft_row(gen, STFT_ROWS, STFT_T, STFT_FRAMES, "launches_per_step")
     return _kernel_entry(
         "stft", "audio_to_sheet_music_tpu_torch/csrc/stft.cu",
         "audio_to_sheet_music_tpu/ops/pallas_stft.py:105", [row],
         "launches_per_step", F32_FLOPS, "one launch (one train step)")
+
+
+def eval_stft(gen: torch.Generator) -> dict:
+    rows, t, frames = EVAL_STFT
+    print(f"stft, the eval path's form ({rows}, {t}), {frames} frames:")
+    return _eval_entry([_stft_row(gen, rows, t, frames,
+                                  "launches_per_forward")], F32_FLOPS)
 
 
 # ---------------------------------------------------------------------------
@@ -739,7 +894,8 @@ KERNEL_GROUPS = [("layer_tail / attn_block", ("gemm_kernel<", "flash_kernel",
                  ("GroupNorm statistics", ("RowwiseMoments",)),
                  ("cuDNN convolution", ("cudnn", "conv", "implicit", "dgrad",
                                         "fprop")),
-                 ("matrix products", ("gemm", "cutlass", "xmma", "sm90")),
+                 ("matrix products", ("gemm", "cutlass", "xmma", "sm90",
+                                      "nvjet")),
                  ("FFT", ("fft",)),
                  ("copies to the host", ("Memcpy DtoH",)),
                  ("copies to the card", ("Memcpy HtoD",)),
@@ -797,6 +953,14 @@ def profile_device(fn, label: str) -> dict:
                 {"name": k, "ms": ms, "count": c} for k, ms, c in rows]}
 
 
+def _song(rng: np.random.Generator) -> np.ndarray:
+    """The seeded 60 s stereo song: sines at 55/220/880 Hz + 0.05 noise."""
+    n = int(SONG_SECONDS * SAMPLE_RATE)
+    t = np.arange(n) / SAMPLE_RATE
+    tones = sum(0.1 * np.sin(2 * np.pi * f0 * t) for f0 in (55.0, 220.0, 880.0))
+    return (tones + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
+
+
 def run_path(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.infer.session import Separator
     from audio_to_sheet_music_tpu_torch.models import atht
@@ -812,10 +976,8 @@ def run_path(profile: bool) -> dict:
           f"{setup_s:.2f} s")
 
     rng = np.random.default_rng(SEED)
-    n = int(SONG_SECONDS * SAMPLE_RATE)
-    t = np.arange(n) / SAMPLE_RATE
-    tones = sum(0.1 * np.sin(2 * np.pi * f0 * t) for f0 in (55.0, 220.0, 880.0))
-    song = (tones + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
+    song = _song(rng)
+    n = song.shape[-1]
 
     t0 = time.perf_counter()
     sep.separate_all_pcm(song)
@@ -1079,6 +1241,214 @@ def run_training(profile: bool) -> dict:
             "loss_tol": loss_tol, "path_rms_opt_in": rms, "timed": timed}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the eval path
+# ---------------------------------------------------------------------------
+
+EVAL_SELECTIONS = ("default", "opt_in", "none")
+EVAL_TRACKS = 2                    # synthetic 12 s tracks for the benchmark
+EVAL_MODELS = ("AudioTextHTDemucs (Ours)",
+               "AudioTextHTDemucs (Ours, random head)",
+               "HTDemucs (random init)")
+
+
+def _timed_sweep(base, song: np.ndarray) -> tuple:
+    """One warm ``separate_all``, then one timed with every launch counter
+    set to 0 just before and read just after."""
+    base.separate_all(song)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    stems = base.separate_all(song)
+    wall = time.perf_counter() - t0
+    return stems, wall, _read_counters()
+
+
+def _decoder_dconv_launches(ht, chunks: torch.Tensor) -> dict:
+    """Which freq decoders' DConvs ``fused_dconv.supports`` sends to
+    ``dconv_rows``, and the launches of an opt-in forward less those of
+    its encode: the decoders' own."""
+    from audio_to_sheet_music_tpu_torch.models import htdemucs
+    from audio_to_sheet_music_tpu_torch.ops import fused_dconv, select
+
+    routes = {}
+    for idx, layer in enumerate(ht.decoder):
+        c = layer.dconv.layers[0].conv1.weight.shape[1]
+        f = 2048 // 4 ** (len(ht.decoder) - idx)
+        routes[f"decoder {idx} C={c} F={f}"] = (
+            "dconv_rows" if fused_dconv.supports(chunks.shape[0] * f, EVAL_T,
+                                                 c) else "per-op")
+    print(f"  freq decoders' DConv under opt_in: {routes}")
+    sel = select.resolve("opt_in")
+    with torch.inference_mode():
+        _zero_counters()
+        _, _, x, xt, *_ = htdemucs.normalize_inputs(chunks, sel.stft)
+        htdemucs.encode(ht, x.to(torch.bfloat16), xt.to(torch.bfloat16), sel)
+        enc = fused_dconv.dconv_rows.launches
+        _zero_counters()
+        htdemucs.forward(ht, chunks, torch.bfloat16, sel)
+        total = fused_dconv.dconv_rows.launches
+    print(f"  dconv_rows launches in one opt-in forward: {total}, of which "
+          f"the encoder {enc} and the decoders {total - enc}")
+    if total - enc != sum(r == "dconv_rows" for r in routes.values()):
+        raise SmokeFailure("the freq decoders did not route their DConv as "
+                           "fused_dconv.supports decides")
+    return {"routes": routes, "decoder_launches": total - enc,
+            "encoder_launches": enc}
+
+
+def _benchmark_cli(out_dir: Path, kernels: str) -> dict:
+    """``cli benchmark`` on synthetic tracks with all three models."""
+    from audio_to_sheet_music_tpu_torch import cli
+
+    cli.main(["benchmark", "--synthetic", "--synthetic-tracks",
+              str(EVAL_TRACKS), "--models", "ours", "ours-random", "htdemucs",
+              "--output-dir", str(out_dir), "--kernels", kernels])
+    payload = json.loads((out_dir / "evaluation_results.json").read_text())
+    if set(payload) != set(EVAL_MODELS):
+        raise SmokeFailure(f"benchmark models {sorted(payload)}")
+    for name, entry in payload.items():
+        if (set(entry) != {"per_track", "aggregate"}
+                or len(entry["per_track"]) != EVAL_TRACKS
+                or set(entry["aggregate"]) != {"sdr", "sisdr"}):
+            raise SmokeFailure(f"{name}: results not in the reference schema")
+        for metric, vals in entry["aggregate"].items():
+            if not all(isinstance(v, float) and -30.0 <= v <= 30.0
+                       for v in vals.values()):
+                raise SmokeFailure(f"{name}: aggregate {metric} {vals} is "
+                                   "not a number within the ±30 dB clamp")
+    return payload
+
+
+def _sdr_gaps(kernel: dict, per_op: dict, root: Path) -> dict:
+    """Per model, track and stem: |SDR(kernels) - SDR(per-op)| against the
+    loss-gap rule, 20 log10(1 + 1e-3 / rms(ref - est)), with rms(ref - est)
+    = rms(ref) 10^(-SDR/20) from the per-op run (SDR is a ratio of sums).
+    The tracks are written again from the benchmark's seed."""
+    from audio_to_sheet_music_tpu_torch.data import synthetic_tracks
+    from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
+
+    refs = {t.name: t.load(mmap=False) for t in synthetic_tracks(
+        EVAL_TRACKS, seconds=12.0, cache_dir=root / "tracks")}
+    worst = {}
+    for name in EVAL_MODELS:
+        gaps = []
+        for tk, tn in zip(kernel[name]["per_track"], per_op[name]["per_track"]):
+            arr = refs[tn["track"]]
+            for i, stem in enumerate(STEM_NAMES):
+                ref_rms = float(np.sqrt(np.mean(arr[1 + i].astype(
+                    np.float64) ** 2)))
+                resid = ref_rms * 10 ** (-tn["sdr"][stem] / 20)
+                tol = 20 * math.log10(1 + PATH_RMS_LIMIT / resid)
+                gap = abs(tk["sdr"][stem] - tn["sdr"][stem])
+                gaps.append((gap, tol))
+                if not gap <= tol:
+                    raise SmokeFailure(
+                        f"{name} {tn['track']} {stem}: SDR gap {gap:.3e} dB "
+                        f"past the loss-gap limit {tol:.3e}")
+        gap, tol = max(gaps, key=lambda g: g[0] / g[1])
+        worst[name] = {"gap_db": gap, "limit_db": tol}
+        print(f"  {name}: largest SDR gap default vs per-op {gap:.3e} dB "
+              f"(limit there {tol:.3e})")
+    return worst
+
+
+def run_eval(profile: bool) -> dict:
+    import tempfile
+
+    from audio_to_sheet_music_tpu_torch.eval.models import HTDemucsBaseline
+    from audio_to_sheet_music_tpu_torch.infer import chunked
+    from audio_to_sheet_music_tpu_torch.models import atht, htdemucs
+    from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
+
+    t0 = time.perf_counter()
+    model = atht.load_params(atht.init(SEED))          # + trained head
+    bases = {sel: HTDemucsBaseline(model.htdemucs, EVAL_SECONDS, EVAL_OVERLAP,
+                                   kernels=sel) for sel in EVAL_SELECTIONS}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if bases["default"].compute_dtype != torch.bfloat16:
+        raise SmokeFailure(f"compute dtype {bases['default'].compute_dtype}, "
+                           "want bf16")
+    song = _song(np.random.default_rng(SEED))
+    n = song.shape[-1]
+    grid = chunked.plan_chunks(n, bases["default"].segment,
+                               bases["default"].overlap, 8)
+    if grid.n_chunks != EVAL_B:
+        raise SmokeFailure(f"{grid.n_chunks} chunks, want {EVAL_B}")
+    print(f"HTDemucsBaseline, the full-width tower on cuda in bf16: set-up "
+          f"{setup_s:.2f} s; {grid.n_chunks} chunks of {EVAL_SECONDS} s")
+
+    sweeps = {}
+    torch.cuda.reset_peak_memory_stats()
+    for sel, base in bases.items():
+        stems, wall, launches = _timed_sweep(base, song)
+        rate = 4 * SONG_SECONDS / wall
+        used = {k: v for k, v in launches.items() if v}
+        print(f"separate_all, {sel}: run {wall:.3f} s, {rate:.2f} "
+              f"audio-sec/sec (4 stems x {SONG_SECONDS:.0f} s), launches "
+              f"{used}")
+        if set(stems) != set(STEM_NAMES) or any(
+                v.shape != (2, n) or not np.isfinite(v).all()
+                or not np.abs(v).max() > 0 for v in stems.values()):
+            raise SmokeFailure(f"{sel}: stems not finite (2, {n}) or silent")
+        sweeps[sel] = {"wall_s": wall, "audio_sec_per_sec": rate,
+                       "launches": launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  peak device memory {peak_gib:.2f} GiB")
+    for sel, names in (("default", ("layer_tail", "henc_freq_fused")),
+                       ("opt_in", ("henc_freq_fused", "dconv_rows",
+                                   "attn_block", "stft"))):
+        for name in names:
+            if sweeps[sel]["launches"][name] <= 0:
+                raise SmokeFailure(f"{name} was not launched on the {sel} "
+                                   "eval path")
+
+    chunks = chunked.frame_song(torch.from_numpy(song).cuda(), grid)
+    with torch.inference_mode():
+        ref = htdemucs.forward(model.htdemucs, chunks, torch.bfloat16, "none")
+        ref_rms = float(ref.pow(2).mean().sqrt())
+        path_rms = {}
+        for sel in ("default", "opt_in"):
+            got = htdemucs.forward(model.htdemucs, chunks, torch.bfloat16, sel)
+            path_rms[sel] = float((got - ref).pow(2).mean().sqrt())
+            print(f"{EVAL_B} x {EVAL_SECONDS} s chunks through "
+                  f"htdemucs.forward, {sel} vs per-op: rms diff "
+                  f"{path_rms[sel]:.3e} (limit {PATH_RMS_LIMIT:.0e}), ref rms "
+                  f"{ref_rms:.3e}")
+            if not (math.isfinite(path_rms[sel])
+                    and path_rms[sel] < PATH_RMS_LIMIT):
+                raise SmokeFailure(f"the {sel} eval path diverges from the "
+                                   "per-op path")
+        del got, ref
+    decoders = _decoder_dconv_launches(model.htdemucs, chunks)
+    if decoders["decoder_launches"] <= 0:
+        raise SmokeFailure("no freq decoder's DConv went through dconv_rows")
+    del chunks
+
+    result = {"setup_s": setup_s, "sweeps": sweeps, "peak_mem_gib": peak_gib,
+              "path_rms": path_rms, "path_ref_rms": ref_rms,
+              "dconv_decoders": decoders}
+    if profile:
+        result["profile"] = profile_device(
+            lambda: bases["default"].separate_all(song),
+            "one HTDemucsBaseline.separate_all (default)")
+    del model, bases
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        runs = {sel: _benchmark_cli(root / sel, sel)
+                for sel in ("default", "none")}
+        result["benchmark_s"] = time.perf_counter() - t0
+        result["sdr_gap"] = _sdr_gaps(runs["default"], runs["none"], root)
+    result["benchmark"] = {sel: {name: entry["aggregate"]
+                                 for name, entry in payload.items()}
+                           for sel, payload in runs.items()}
+    print(f"  two benchmark runs in {result['benchmark_s']:.1f} s")
+    return result
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -1110,12 +1480,20 @@ def main(argv: list) -> int:
         kernels = [check_layer_tail(gen, profile), check_henc(gen, profile),
                    check_dconv(gen, profile), check_attn_block(gen, profile),
                    check_stft(gen)]
+        k_eval = [eval_layer_tail(gen, profile), eval_henc(gen),
+                  eval_dconv(gen), eval_attn_block(gen), eval_stft(gen)]
+        for k, at_eval in zip(kernels, k_eval):
+            k.update(at_eval)
         path = run_path(profile)
         training = run_training(profile)
+        evaluation = run_eval(profile)
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
             k["launches"] = counts[k["name"]]
+            sel = "default" if k["name"] in path["launches"] else "opt_in"
+            k["eval_launches"] = evaluation["sweeps"][sel]["launches"][
+                k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1124,11 +1502,14 @@ def main(argv: list) -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "compiled": compiled,
-         "kernels": kernels, "path": path, "training": training}, indent=1))
+         "kernels": kernels, "path": path, "training": training,
+         "eval": evaluation}, indent=1))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")} for kern in kernels]
+                         "bound_by", "library_ms")
+                or k.startswith("eval_") and k != "eval_forms"}
+               for kern in kernels]
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

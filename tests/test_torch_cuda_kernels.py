@@ -11,8 +11,11 @@ and ragged sequences, one key, single rows, odd T, a frame count off the
 kernel's frame block), the flash launch's tile edges (S at and one past a
 128-key tile, L one 64-row query tile, grids of more blocks than the card
 has SMs), the GEMM's edges (a partial 128-column tile, M off the 128-row
-tile), the four serving forms at B = 4, the henc conv's K chunks and
-channel slices, a 30 s chunk through ``henc_freq_fused``, the DConv
+tile), the four serving forms at B = 4 and the eval path's four (2688
+freq and 1344 time tokens, self and cross; T = 336 frames through
+``henc_freq_fused`` and the freq decoders' ``dconv_rows``; the whole
+4-source tower at tiny width with and without kernels), the henc conv's K
+chunks and channel slices, a 30 s chunk through ``henc_freq_fused``, the DConv
 routine over the T and C edges of its tiles (T around the 64-frame tile,
 C whose hidden C/8 is padded to the MMA's 16, the widest C it takes) and
 in place, and the refusals (a tensor that requires grad, a wrong dtype, rows wider than the
@@ -86,6 +89,12 @@ GEMM_EDGES = [(1, 130, 7, 192, 320), (3, 257, 200, 384, 1536)]
 # the four serving forms of one group of four 6 s chunks
 SERVING_FORMS = [(4, 2072, 2072), (4, 1034, 1034), (4, 2072, 1034),
                  (4, 1034, 2072)]
+# the eval path's forms (the HTDemucs baseline's 7.8 s chunks): 2688 freq
+# tokens (8 x 336), 1344 time tokens, self and cross; 1344 keys end
+# half-way through a 128-key tile
+EVAL_FORMS = [(2, 2688, 2688), (2, 1344, 1344), (2, 2688, 1344),
+              (2, 1344, 2688)]
+EVAL_T = 336                     # spectrogram frames of a 7.8 s chunk
 
 
 @pytest.mark.parametrize("b,l,s,d,ff", [
@@ -94,7 +103,7 @@ SERVING_FORMS = [(4, 2072, 2072), (4, 1034, 1034), (4, 2072, 1034),
     (1, 130, 7, 128, 256),       # narrow model, fewer keys than a tile
     (3, 64, 200, 256, 1024),
 ] + GEMM_EDGES + [(b, l, s, 512, 2048) for b, l, s in FLASH_EDGES +
-                  SERVING_FORMS])
+                  SERVING_FORMS + EVAL_FORMS])
 def test_layer_tail_matches_plain(gen, b, l, s, d, ff):
     args = _layer_args(b, l, s, d, ff, gen)
     before = fused_attn.layer_tail.launches
@@ -119,6 +128,7 @@ def test_layer_tail_refuses_f32_on_the_card(gen):
     (2, 4, 48, 256, 130),
     (1, 2, 16, 32, 300),
     (4, 4, 48, 2048, 259),
+    (2, 4, 48, 2048, EVAL_T),    # T = 5 x 64 + 16 frames
     (1, 12, 96, 32, 70),         # the conv's K in two chunks, C in two slices
     (2, 4, 40, 64, 65),          # C off the 16-column tile and the pair slice
 ])
@@ -272,6 +282,49 @@ def test_dconv_routine_in_place_is_repeatable(gen, which):
     _close(a, want, 2 * 2.0 ** -8, 2.0 ** -9)
 
 
+# the freq decoders' DConv on the eval path, two 7.8 s chunks:
+# (rows = 2 x F, C) of decoders 0-3; C = 384 is the widest the routine holds
+@pytest.mark.parametrize("rows,c", [(2 * 8, 384), (2 * 32, 192),
+                                    (2 * 128, 96), (2 * 512, 48)])
+def test_dconv_rows_at_the_decoders(gen, rows, c):
+    assert fused_dconv.supports(rows, EVAL_T, c)
+    d = _dconv(c, gen)
+    x = torch.randn((rows, c, EVAL_T), generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    with torch.inference_mode():
+        got = fused_dconv.dconv_rows(d, x)
+        want = fused_dconv.dconv_rows_plain(d, x)
+    torch.cuda.synchronize()
+    _close(got, want, 2 * 2.0 ** -8, 2.0 ** -9)
+
+
+@pytest.mark.parametrize("kernels,used", [
+    ("default", ("layer_tail", "henc_freq_fused")),
+    ("opt_in", ("henc_freq_fused", "dconv_rows", "stft")),
+])
+def test_htdemucs_forward_with_kernels_matches_per_op(gen, kernels, used):
+    """The whole 4-source tower at tiny width on two 7.8 s chunks, bf16:
+    the kernel selection against the per-op path, within the kernel gate's
+    1e-3 rms (``attn_block`` takes 128-wide models only, so the opt-in
+    transformer at D = 64 is per op)."""
+    fns = {"layer_tail": fused_attn.layer_tail,
+           "henc_freq_fused": fused_enc.henc_freq_fused,
+           "dconv_rows": fused_dconv.dconv_rows, "stft": fused_stft.stft}
+    ht = htdemucs.HTDemucs(channels=(8, 16, 24, 32), bottom_channels=64,
+                           t_layers=2, gen=gen).cuda().requires_grad_(False)
+    mix = (0.1 * torch.randn((2, 2, 343980), generator=gen)).cuda()
+    before = {k: f.launches for k, f in fns.items()}
+    with torch.inference_mode():
+        got = htdemucs.forward(ht, mix, torch.bfloat16, kernels)
+        torch.cuda.synchronize()
+        ran = {k: f.launches - before[k] for k, f in fns.items()}
+        want = htdemucs.forward(ht, mix, torch.bfloat16, False)
+    assert got.shape == (2, 4, 2, 343980) and got.dtype == torch.float32
+    assert all(ran[k] > 0 for k in used), ran
+    assert torch.isfinite(got).all()
+    assert float((got - want).pow(2).mean().sqrt()) < 1e-3
+
+
 def _block_args(b, l, s, d, gen):
     def n(*shape, scale=1.0):
         return torch.randn(shape, generator=gen) * scale
@@ -288,7 +341,7 @@ def _block_args(b, l, s, d, gen):
     (1, 130, 7, 128),
     (3, 64, 200, 256),
 ] + [(b, l, s, d) for b, l, s, d, _ in GEMM_EDGES]
-  + [(b, l, s, 512) for b, l, s in FLASH_EDGES + SERVING_FORMS])
+  + [(b, l, s, 512) for b, l, s in FLASH_EDGES + SERVING_FORMS + EVAL_FORMS])
 def test_attn_block_matches_plain(gen, b, l, s, d):
     args = _block_args(b, l, s, d, gen)
     before = fused_attn.attn_block.launches

@@ -68,7 +68,8 @@ def test_import_leaves_jax_unloaded():
             "from audio_to_sheet_music_tpu_torch.infer import session\n"
             "from audio_to_sheet_music_tpu_torch.apps import separate\n"
             "from audio_to_sheet_music_tpu_torch.train import trainer\n"
-            "from audio_to_sheet_music_tpu_torch import cli, config\n"
+            "from audio_to_sheet_music_tpu_torch import cli, config, eval\n"
+            "from audio_to_sheet_music_tpu_torch.eval import harness, models\n"
             "from audio_to_sheet_music_tpu_torch.ops import (fused_dconv, "
             "fused_stft, select)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
