@@ -15,8 +15,12 @@ the same path:
   (``fused_attn.layer_tail``, ``fused_enc.henc_freq_fused``) with their
   plain PyTorch versions and the ``nvcc`` build helper.
 - ``models``  — HTDemucs encode path, the CLAP text tower, AudioTextHTDemucs.
-- ``infer``   — chunk planning, overlap-add and the ``Separator`` session.
-- ``utils``, ``apps`` — WAV IO and the ``separate`` command line.
+- ``infer``   — chunk planning, overlap-add, the ``Separator`` session and
+  the ``StreamingSeparator``.
+- ``utils``   — WAV IO, spectrogram plots (matplotlib, imported when
+  drawing) and timing helpers.
+- ``apps``    — the ``separate`` and spectrogram commands, the stdlib HTTP
+  server and the ``serve`` app.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

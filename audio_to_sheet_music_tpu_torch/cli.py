@@ -8,7 +8,8 @@
         [--models ours ours-random htdemucs] [--synthetic \
         [--synthetic-tracks N]] [--test-dir DIR] [--max-tracks N] \
         [--checkpoint params.npz] [--output-dir results] \
-        [--device cuda|cpu] [--kernels default|opt_in|none]
+        [--plot-spectrograms] [--device cuda|cpu] \
+        [--kernels default|opt_in|none]
 
 ``train`` is the counterpart of the JAX package's ``cli.train_main``: it
 reads the reference-schema YAML config and runs ``train.trainer.train``.
@@ -16,7 +17,9 @@ reads the reference-schema YAML config and runs ``train.trainer.train``.
 model's SDR and SI-SDR on the test tracks (``--test-dir``, else the
 config's ``data.test_dir``; ``--synthetic`` writes 12 s ``data/synth.py``
 tracks instead), prints the tables and writes
-``<output-dir>/evaluation_results.json``.  Both run on the card unless
+``<output-dir>/evaluation_results.json``; ``--plot-spectrograms`` adds one
+all-stems PNG a track and model under ``<output-dir>/spectrograms/``
+(matplotlib).  Both run on the card unless
 ``--device cpu``; ``--kernels`` picks the hand-written kernels
 (``ops/select.py``).  Without a ``--config`` file the config's defaults
 apply.  ``ATSM_TINY_MODEL=1`` builds the models at test size.
@@ -25,7 +28,6 @@ apply.  ``ATSM_TINY_MODEL=1`` builds the models at test size.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import tempfile
 from pathlib import Path
@@ -70,6 +72,8 @@ def benchmark_main(argv=None) -> None:
                     help="run on synthetic tracks instead of a dataset")
     ap.add_argument("--synthetic-tracks", type=int, default=5,
                     help="number of synthetic tracks")
+    ap.add_argument("--plot-spectrograms", action="store_true",
+                    help="write per-track all-stems spectrogram PNGs")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--kernels", default="default",
                     choices=["default", "opt_in", "none"])
@@ -83,14 +87,11 @@ def benchmark_main(argv=None) -> None:
 
     cfg = (Config.from_yaml(args.config) if Path(args.config).exists()
            else Config())
-    model = atht.init_from_env(0)
-    # the committed trained head is full width: a test-size model keeps its
-    # own random head, as in the JAX package
-    if args.checkpoint or os.environ.get("ATSM_TINY_MODEL") != "1":
-        atht.load_params(model, args.checkpoint)
+    model = atht.load_from_env(args.checkpoint)
     print("benchmark: no converted checkpoint loaded; models run with random "
           "or .npz weights, so scores are not pretrained-baseline numbers")
     run = dict(device=args.device, kernels=args.kernels)
+    out_dir = Path(args.output_dir)
 
     registry = {}
     for name in args.models:
@@ -115,13 +116,34 @@ def benchmark_main(argv=None) -> None:
         all_results = {}
         for name, m in registry.items():
             print(f"evaluating {name} on {len(tracks)} tracks")
-            all_results[name] = evaluate_model(m.separate_all, tracks, name,
+            separate_all = m.separate_all
+            if args.plot_spectrograms:
+                separate_all = _plotting(separate_all, out_dir / "spectrograms"
+                                         / name.replace(" ", "_"),
+                                         args.device)
+            all_results[name] = evaluate_model(separate_all, tracks, name,
                                                max_tracks=args.max_tracks)
 
     print(format_results_table(all_results))
-    out = Path(args.output_dir) / "evaluation_results.json"
+    out = out_dir / "evaluation_results.json"
     save_results(all_results, out)
     print(f"\nresults written to {out}")
+
+
+def _plotting(separate_all, spec_dir: Path, device: str):
+    """``separate_all`` that also writes the mixture's and its stems'
+    spectrograms as ``spec_dir/track_NNN.png``, one a call."""
+    from .utils import plotting
+
+    def wrapped(mixture):
+        stems = separate_all(mixture)
+        fig = plotting.plot_all_stems(mixture, dict(stems), device=device)
+        spec_dir.mkdir(parents=True, exist_ok=True)
+        n = len(list(spec_dir.glob("*.png")))
+        plotting.save_figure(fig, spec_dir / f"track_{n:03d}.png")
+        return stems
+
+    return wrapped
 
 
 COMMANDS = {"train": train_main, "benchmark": benchmark_main}

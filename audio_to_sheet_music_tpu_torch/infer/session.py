@@ -7,24 +7,39 @@ per distinct prompt) and the chunked sweeps:
 - ``separate`` / ``separate_all``: the whole song's chunks as one batch,
   the frozen encoder once, every stem's head as one batched pass, weighted
   overlap-add, float32 stems back on the host;
+- ``separate_pcm``: ``separate`` quantised on the device to absolute-level
+  int16 (``sample = pcm / 32767``), one int16 copy to the host: the HTTP
+  server's hot path;
 - ``separate_all_pcm``: the serving path.  Chunks run in groups
   (``[g/2, g, g, ...]``); each group encodes, runs every stem head, adds its
   unnormalised overlap-add to the carry from the group before, and
   quantises the samples whose weights are final to int16 against one shared
   scale (2 x the mixture's peak).  Each group's PCM goes to the host in one
-  copy into pinned memory on a side stream, so it overlaps later groups.
+  copy into pinned memory on a side stream, so it overlaps later groups;
+- ``_stream_block``: one block of ``infer.streaming.StreamingSeparator``:
+  ``block_chunks`` chunks through the encoder once and every stem's head,
+  returning the unnormalised overlap-add ``(acc, wsum)`` on the device.
+
+The JAX package caches one jitted program per chunk geometry; eager
+PyTorch has nothing to cache, so every sweep above goes through the same
+``_heads``.
 
 On the card the model computes in bf16 (f32 for the STFT, the norms'
 statistics and the text tower); on the CPU in f32.  The CUDA path sets
 ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False: every f32 product it does
 (text tower, f32 statistics, the plain versions it is checked against) is
-true f32.
+true f32.  A ``Separator`` built with ``deterministic=True`` (the serving
+app's, ``apps/serve.build_separator``) runs its chunk programs with
+``torch.backends.cudnn.deterministic`` set, so a request repeats bit for
+bit; the flag is restored after each program, so training and evaluation
+in the same process keep cuDNN's free choice of algorithms.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +57,25 @@ def set_precision_flags() -> None:
     """No TF32 anywhere: f32 products and convolutions are true f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool = True) -> Iterator[None]:
+    """With ``on``, cuDNN takes deterministic algorithms inside the block
+    and the process's setting comes back after it; without, a no-op.  On
+    the H100 the head's bf16 convolutions otherwise differ by a few int16
+    steps between two sweeps of one song (``chip_smoke.py --profile``
+    prints both settings).  The flag is process-wide: the server holds its
+    device lock around every sweep, so no other sweep sees it."""
+    if not on:
+        yield
+        return
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def open_device(device: str | torch.device, who: str) -> torch.device:
@@ -74,7 +108,7 @@ class Separator:
                  device: str | torch.device = "cuda", tokenizer=None,
                  normalize_text: bool = False,
                  sample_rate: int = SAMPLE_RATE, pretrained: bool = False,
-                 kernels: Kernels = True):
+                 kernels: Kernels = True, deterministic: bool = False):
         """``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the
         host.  ``compute_dtype`` defaults to bf16 on the card and f32 on the
         CPU.  ``pretrained=True`` makes the tokenizer refuse the hash
@@ -82,7 +116,8 @@ class Separator:
         ``kernels`` picks the hand-written kernels (``ops.select``: the
         default selection, ``"opt_in"``, or ``False`` for the encoder layer
         by layer in PyTorch ops, the yardstick the kernels are timed
-        against)."""
+        against).  ``deterministic=True`` runs every chunk program under
+        ``cudnn_deterministic``, so two calls give the same bytes."""
         self.device = open_device(device, "Separator")
         self.model = model.to(self.device)
         self.sample_rate = sample_rate
@@ -93,9 +128,11 @@ class Separator:
                              else torch.bfloat16)
         self.compute_dtype = compute_dtype
         self.normalize_text = normalize_text
+        self.pretrained = pretrained
         self.tokenizer = tokenizer or default_tokenizer(require_real=pretrained)
         self.bucket = "auto"
         self.kernels = resolve(kernels)
+        self.deterministic = deterministic
         self._emb_cache: Dict[str, torch.Tensor] = {}
 
     # -- text ---------------------------------------------------------------
@@ -118,9 +155,11 @@ class Separator:
 
     def _heads(self, chunks: torch.Tensor, embs: torch.Tensor) -> torch.Tensor:
         """(n, 2, seg) chunks -> (n, S*2, seg): encoder once, all stems."""
-        enc = atht.encode_mixture(self.model, chunks, self.compute_dtype,
-                                  self.kernels)
-        stacked = atht.apply_head_multi(self.model, enc, embs)  # (S, n, 2, L)
+        with cudnn_deterministic(self.deterministic):
+            enc = atht.encode_mixture(self.model, chunks, self.compute_dtype,
+                                      self.kernels)
+            # (S, n, 2, L)
+            stacked = atht.apply_head_multi(self.model, enc, embs)
         s_, b_, c_, l_ = stacked.shape
         return stacked.permute(1, 0, 2, 3).reshape(b_, s_ * c_, l_)
 
@@ -133,8 +172,9 @@ class Separator:
     # -- separation ---------------------------------------------------------
 
     @torch.inference_mode()
-    def _sweep(self, mixture: np.ndarray, embs: torch.Tensor) -> np.ndarray:
-        """Whole-song sweep -> (S*2, T) float32 on the host."""
+    def _sweep_on_device(self, mixture: np.ndarray, embs: torch.Tensor
+                         ) -> torch.Tensor:
+        """Whole-song sweep -> (S*2, T) float32 on the device."""
         length = int(np.shape(mixture)[-1])
         grid = chunked.plan_chunks(length, self.segment, self.overlap,
                                    self.bucket)
@@ -144,7 +184,11 @@ class Separator:
         valid = (torch.arange(grid.n_chunks, device=self.device)
                  * grid.hop) < length
         out = chunked.overlap_add_weighted(flat, grid, self.overlap, valid)
-        return out.float().cpu().numpy()
+        return out.float()
+
+    def _sweep(self, mixture: np.ndarray, embs: torch.Tensor) -> np.ndarray:
+        """Whole-song sweep -> (S*2, T) float32 on the host."""
+        return self._sweep_on_device(mixture, embs).cpu().numpy()
 
     @torch.inference_mode()
     def separate(self, mixture: np.ndarray, prompt: str) -> np.ndarray:
@@ -152,6 +196,37 @@ class Separator:
         (2, T) float32 stem: 6 s chunks, linear cross-fade overlap-add,
         weight renormalisation."""
         return self._sweep(mixture, self.text_embedding(prompt)[None])
+
+    @torch.inference_mode()
+    def separate_pcm(self, mixture: np.ndarray, prompt: str) -> np.ndarray:
+        """``separate`` as absolute-level int16 ``(2, T)``: ``pcm / 32767``
+        is the float stem, clipped at ±32767 as an int16 WAV write clips.
+        The quantisation runs on the device; one int16 copy comes back,
+        whose bytes go into a WAV as they are.  (The JAX package rounds
+        twice, to its shared-scale wire format and then to this level; one
+        rounding here, so the two differ by at most one step while the
+        stem's peak stays under 1.)"""
+        out = self._sweep_on_device(mixture, self.text_embedding(prompt)[None])
+        q = torch.clamp(torch.round(out * 32767.0), -32767, 32767)
+        return q.to(torch.int16).cpu().numpy()
+
+    @torch.inference_mode()
+    def _stream_block(self, song: torch.Tensor, embs: torch.Tensor,
+                      block_chunks: int, hop: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One streaming block: ``song (2, span)`` f32 on the device, with
+        ``span = (block_chunks - 1) * hop + segment`` -> the unnormalised
+        overlap-add ``(acc (S*2, span), wsum (span,))`` f32 on the device.
+        The encoder runs once over the block's chunks and every stem's head
+        in one batched pass; every chunk carries full weight (the stream
+        decides which samples are final)."""
+        seg = self.segment
+        span = (block_chunks - 1) * hop + seg
+        grid = chunked.ChunkGrid(segment=seg, hop=hop, n_chunks=block_chunks,
+                                 length=span)
+        flat = self._heads(chunked.frame_song(song, grid, padded=True), embs)
+        return chunked.overlap_add_weighted(flat.float(), grid, seg - hop,
+                                            normalize=False)
 
     @torch.inference_mode()
     def separate_all(self, mixture: np.ndarray,

@@ -137,6 +137,18 @@ def init_from_env(seed: int = 0) -> AudioTextHTDemucs:
     return init(seed)
 
 
+def load_from_env(checkpoint: str | Path | None = None, seed: int = 0
+                  ) -> AudioTextHTDemucs:
+    """The commands' model: ``init_from_env`` with ``checkpoint`` (or the
+    committed trained head) loaded by ``load_params``.  A test-size model
+    without a checkpoint keeps its random head, since the committed head is
+    full width, as in the JAX package."""
+    model = init_from_env(seed)
+    if checkpoint or os.environ.get("ATSM_TINY_MODEL") != "1":
+        load_params(model, checkpoint)
+    return model
+
+
 def graft_head(model: AudioTextHTDemucs, path: str | Path = DEFAULT_HEAD
                ) -> AudioTextHTDemucs:
     """Load a head saved by the JAX ``save_params_npz`` (e.g. the committed

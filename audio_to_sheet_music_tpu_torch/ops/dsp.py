@@ -8,6 +8,7 @@
   edge frames, iSTFT, crop back to ``length`` samples.
 - ``magnitude_cac`` / ``mask_cac`` — complex-as-channels packing and its
   inverse.
+- ``spectrogram_db`` — the power spectrogram in dB the plots draw.
 
 The JAX package lowers the DFT as matmuls for the TPU; here ``torch.stft`` /
 ``torch.istft`` (cuFFT on the card) compute the same transforms, checked
@@ -117,3 +118,19 @@ def mask_cac(m: torch.Tensor) -> torch.Tensor:
     *lead, c2, f, t = m.shape
     m = m.reshape(*lead, c2 // 2, 2, f, t)
     return torch.complex(m[..., 0, :, :], m[..., 1, :, :])
+
+
+def spectrogram_db(x: torch.Tensor, n_fft: int = 2048, hop: int = 512,
+                   top_db: float = 80.0) -> torch.Tensor:
+    """Power spectrogram in dB for plotting: ``(..., T)`` -> ``(..., n_fft/2
+    + 1, T // hop + 1)`` f32 on ``x``'s device.
+
+    The centred, normalised f32 STFT (Hann window, reflect padding),
+    ``10·log10(max(power, 1e-10))``, then a floor ``top_db`` under each
+    spectrogram's own maximum over its last two axes, so a quiet item of a
+    batch keeps its own range."""
+    z = stft(torch.as_tensor(x, dtype=torch.float32), n_fft, hop)
+    power = z.real.square() + z.imag.square()
+    db = 10.0 * torch.log10(torch.clamp(power, min=1e-10))
+    peak = db.amax(dim=(-2, -1), keepdim=True)
+    return torch.maximum(db, peak - top_db)

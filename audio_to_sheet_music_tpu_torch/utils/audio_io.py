@@ -55,8 +55,15 @@ def write_wav(path: str | Path, wav: np.ndarray, sr: int = 44100) -> None:
     wavfile.write(path, sr, (data.T * 32767.0).astype(np.int16))
 
 
-def write_wav_pcm(path: str | Path, pcm: np.ndarray, sr: int = 44100) -> None:
-    """Write int16 ``(C, T)`` PCM (a ``separate_all_pcm`` stem) verbatim."""
+def write_wav_pcm(path: str | Path, pcm: np.ndarray, scale: float = 1.0,
+                  sr: int = 44100) -> None:
+    """Write int16 ``(C, T)`` PCM (a ``separate_all_pcm`` stem) verbatim.
+
+    ``scale`` is the stem's scale from ``separate_all_pcm``: the PCM encodes
+    ``sample = pcm * scale / 32767``.  The bytes go into the file as they
+    are, as in the JAX package, so a shared-scale stem plays as a
+    peak-normalised master and only ``scale`` 1 (``absolute=True``) plays at
+    the float stem's level."""
     from scipy.io import wavfile
 
     wavfile.write(path, sr, np.ascontiguousarray(pcm.T))

@@ -69,6 +69,33 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    aggregate a number within the ±30 dB clamp, and each stem's SDR within
    the loss-gap rule of the per-op one.
 
+6. The serving apps: ``apps.serve.build_separator(None, "config.yaml",
+   device="cuda")`` (the same seeded towers and committed head; bf16; the
+   app protocol's 6 s chunks with 0.1 s overlap) behind a
+   ``SeparationService``; ``autotune_stream_block`` (its two timed block
+   steps, the fitted floor and per-chunk time, the chosen block and its
+   predicted first audio) and the peak memory of one block of the chosen
+   size, which must fit.  Then ``separate_pcm`` twice (the app separator
+   takes cuDNN's deterministic algorithms: the two must repeat), and the
+   server on ``127.0.0.1`` in a thread, with the 60 s song as an int16
+   WAV: ``/api/separate`` within
+   one int16 step of ``separate_pcm``; ``/api/separate/stream`` at
+   ``block=auto`` and ``block=8``, each exactly ``44 + 4 T`` bytes and
+   within 1e-3 rms of ``separate`` away from the edge samples, with the
+   seconds to the first audio byte, the wall and the rate, and at ``auto``
+   the launch counters set to 0 just before and read just after
+   (``layer_tail`` 10 and ``henc_freq_fused`` 1 a block step);
+   ``/api/separate_all`` within one step of ``separate_all_pcm`` a stem,
+   ``scales.json`` equal to its scales, and its wall against the direct
+   call's; ``/api/separate?format=json`` (spectrograms only where
+   matplotlib imports); ``/api/health`` and ``/api/metrics`` counting the
+   requests sent, and the device lock's busy share.  Then
+   ``layer_tail`` (the four forms) and ``henc_freq_fused`` against their
+   plain versions at the stream's blocks (the chosen block and 8 chunks of
+   6 s) and at ``/api/separate``'s whole-song batch, with the times of
+   phase 2.  Last, ``spectrogram_db`` on the card against the CPU within
+   1e-2 dB.
+
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
 flash, out-projection GEMM, LayerNorm, FF1, FF2, each with its rate and
@@ -82,20 +109,29 @@ call's attention kernels and matrix products; after phase 3, one more
 and the device's busy share) and one timed sweep on the per-op path
 (``Separator(kernels=False)``), the rate the kernels have to beat; and in
 phase 4 one opt-in train step under the profiler, and in phase 5 one
-default ``HTDemucsBaseline`` sweep under the profiler.
+default ``HTDemucsBaseline`` sweep under the profiler; and the cost of
+cuDNN's deterministic algorithms, which only the serving app's separator
+takes: a default train step (phase 4) and a default eval sweep (phase 5)
+timed with the flag off and on (off, on, on, off), and in phase 6 two
+``separate_pcm`` calls with it off, whose int16 difference shows why the
+app takes it.
 
 The last three lines of standard output are the card (as ``nvidia-smi``
 prints it), one JSON object with the numbers of every kernel (``launches``
 from the path that runs it: the serving sweep for ``layer_tail`` and
 ``henc_freq_fused``, the training run for the other three; ``eval_*`` the
 same numbers at the eval path's shapes, with ``eval_launches`` from its
-default sweep for the first two and its opt-in sweep for the others), and
+default sweep for the first two and its opt-in sweep for the others;
+``stream_launches`` from phase 6's streaming request at ``block=auto``;
+``stream_*`` for ``layer_tail`` and ``henc_freq_fused`` the numbers at the
+stream's block shapes, means per launch over phase 6's two streams), and
 ``{"ok": true, "device": {...}}``.  The same numbers, with each form's and
-the training and eval phases' (and the profile, when asked), are written to
-``build/chip_smoke.json``.
+the training, eval and serving phases' (and the profile, when asked), are
+written to ``build/chip_smoke.json``.
 
-Rates for the bounds are the H100 SXM data sheet's dense peaks: 989 TFLOP/s
-bf16 on the tensor cores, 67 TFLOP/s f32 outside them, and 3.35 TB/s of
+Rates for the bounds are the H100 SXM data sheet's dense peaks: the bf16
+tensor-core peak from ``utils/profiling.peak_tflops`` (989 TFLOP/s, keyed on
+the card's name), 67 TFLOP/s f32 outside the tensor cores, and 3.35 TB/s of
 memory.  The kernels that take bf16 in and give bf16 out have their
 operations priced at the bf16 tensor rate, whatever units the kernel itself
 uses; the f32 STFT at the f32 rate, counting an FFT's 2.5 N log2 N
@@ -116,7 +152,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-BF16_TENSOR_FLOPS = 989e12
+BF16_TENSOR_FLOPS = 0.0            # set in main: profiling.peak_tflops()
 F32_FLOPS = 67e12
 MEMORY_BYTES_PER_S = 3.35e12
 SEED = 0
@@ -402,8 +438,10 @@ def device_ms_by_kernel(calls: list, reps: int = 3, tries: int = 3) -> list:
                     e.time_range.end - e.time_range.start) / 1e3 / reps
             out.append(ms)
         return out
-    raise SmokeFailure("the profiler saw no device time, or an uneven count "
-                       "of kernels")
+    names = sorted({e.name for e in kern})
+    raise SmokeFailure(f"the profiler saw no device time, or an uneven count "
+                       f"of kernels: {len(kern)} over {len(calls)} x {reps} "
+                       f"calls in the last of {tries} sessions ({names})")
 
 
 def launch_split(calls: list, labels: list, forms: list) -> None:
@@ -674,15 +712,21 @@ def _kernel_entry(name: str, source: str, replaces: str, forms: list,
             "per": per, "forms": forms}
 
 
+def _path_entry(prefix: str, forms: list, weight: str,
+                flop_rate: float) -> dict:
+    """A kernel's numbers at another path's forms, as ``<prefix>_*``:
+    means per launch over that path's launches (``weight``)."""
+    entry = _kernel_entry("", "", "", forms, weight, flop_rate, "")
+    return {f"{prefix}_forms": forms, **{
+        f"{prefix}_{k}": entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}}
+
+
 def _eval_entry(forms: list, flop_rate: float) -> dict:
     """A kernel's numbers at the eval path's forms (phase 5), as
     ``eval_*``: means per launch over one baseline forward's launches."""
-    entry = _kernel_entry("", "", "", forms, "launches_per_forward",
-                          flop_rate, "")
-    return {"eval_forms": forms, **{
-        f"eval_{k}": entry[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")}}
+    return _path_entry("eval", forms, "launches_per_forward", flop_rate)
 
 
 def _dconv_rows(gen: torch.Generator, forms: list, t: int, weight: str
@@ -1089,6 +1133,25 @@ def _train_config(root: Path):
                           output_dir=str(root / "out")))
 
 
+def deterministic_cost(run, label: str) -> dict:
+    """``run()`` -> ms, timed with ``torch.backends.cudnn.deterministic``
+    off, on, on, off (the app separator's setting against everyone
+    else's); the flag is off again after."""
+    ms: dict = {"off": [], "on": []}
+    try:
+        for on in (False, True, True, False):
+            torch.backends.cudnn.deterministic = on
+            ms["on" if on else "off"].append(run())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"  {label}, cuDNN deterministic off / on: "
+          f"{', '.join(f'{x:.2f}' for x in ms['off'])} / "
+          f"{', '.join(f'{x:.2f}' for x in ms['on'])} ms: "
+          f"{mean['on'] / mean['off'] - 1:+.2%}")
+    return {"ms": ms, "cost": mean["on"] / mean["off"] - 1}
+
+
 def _time_steps(model, batch: dict, kernels, n: int, profile: bool) -> dict:
     """Warm train steps of the head under one selection on a fresh
     optimizer (the towers do not change, the head does); with ``profile``,
@@ -1234,6 +1297,10 @@ def run_training(profile: bool) -> dict:
               f"({timed[label]['steps_per_s']:.3f} steps/s), loss "
               f"{timed[label]['loss']:.5f}")
     print(f"  launches per opt_in step: {timed['opt_in']['launches_per_step']}")
+    if profile:
+        timed["deterministic_cost"] = deterministic_cost(
+            lambda: _time_steps(model, batch, True, 3, False)["step_ms"],
+            "warm train step, default")
     return {"launches": launches, "wall_s": wall,
             "epoch_steps_per_s": result["steps_per_s"], "peak_mem_gib": peak_gib,
             "steps": steps, "val_sdr": result["best_sdr"],
@@ -1433,6 +1500,9 @@ def run_eval(profile: bool) -> dict:
         result["profile"] = profile_device(
             lambda: bases["default"].separate_all(song),
             "one HTDemucsBaseline.separate_all (default)")
+        result["deterministic_cost"] = deterministic_cost(
+            lambda: _timed_sweep(bases["default"], song)[1] * 1e3,
+            "HTDemucsBaseline.separate_all, default")
     del model, bases
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
@@ -1449,6 +1519,327 @@ def run_eval(profile: bool) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the serving apps
+# ---------------------------------------------------------------------------
+
+STREAM_FIXED_BLOCK = 8             # the JAX package's static ?block default
+SPEC_DB_LIMIT = 1e-2               # dB, spectrogram_db on the card vs the CPU
+FIRST_AUDIO = 45                   # bytes: the WAV header and one more
+
+
+def _wav_bytes(pcm: np.ndarray) -> bytes:
+    import io
+
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, SAMPLE_RATE, np.ascontiguousarray(pcm.T))
+    return buf.getvalue()
+
+
+def _request(port: int, method: str, path: str, body: bytes | None = None
+             ) -> dict:
+    """One request to the local server -> status, body, wall seconds and
+    the seconds to the first byte after a WAV header (``first_s``)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "audio/wav"} if body else {})
+        resp = conn.getresponse()
+        head = resp.read(FIRST_AUDIO)
+        first_s = time.perf_counter() - t0
+        data = head + resp.read()
+        wall = time.perf_counter() - t0
+        length = resp.getheader("Content-Length")
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise SmokeFailure(f"{method} {path}: HTTP {resp.status}: "
+                           f"{data[:200]!r}")
+    return {"body": data, "wall_s": wall, "first_s": first_s,
+            "length": None if length is None else int(length)}
+
+
+def _pcm_diff(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def stream_kernels(blocks: dict, n_sep: int) -> dict:
+    """``layer_tail`` and ``henc_freq_fused`` against their plain versions
+    and library calls at phase 6's shapes: each stream block size (6 s
+    chunks; weighted by the launches of its steps, ``blocks``: size ->
+    steps) and ``/api/separate``'s whole-song batch of ``n_sep`` chunks
+    (weight 0: checked and timed, outside the stream's means).  ->
+    ``{kernel: {"stream_*": ...}}``."""
+    gen = torch.Generator().manual_seed(SEED)
+    weight = "launches_on_streams"
+    sizes = dict(blocks)
+    sizes.setdefault(n_sep, 0)
+    print(f"layer_tail and henc_freq_fused at phase 6's batches "
+          f"(stream blocks {sorted(blocks)}, /api/separate {n_sep} chunks):")
+    tails, hencs = [], []
+    layer = _henc_layer(gen)
+    for b, steps in sorted(sizes.items()):
+        forms = [(name, l, s_, n * steps) for name, l, s_, n in LAYER_FORMS]
+        rows, _ = _layer_tail_rows(gen, b, forms, weight)
+        tails += rows
+        row, x = _henc_form(layer, b, TRAIN_T, weight, steps, gen)
+        hencs.append(row)
+        del x
+        torch.cuda.empty_cache()
+    return {"layer_tail": _path_entry("stream", tails, weight,
+                                      BF16_TENSOR_FLOPS),
+            "henc_freq_fused": _path_entry("stream", hencs, weight,
+                                           BF16_TENSOR_FLOPS)}
+
+
+def run_serving(profile: bool) -> dict:
+    import io
+    import threading
+    import zipfile
+
+    from audio_to_sheet_music_tpu_torch.apps import serve, serve_http
+    from audio_to_sheet_music_tpu_torch.infer import chunked, streaming
+    from audio_to_sheet_music_tpu_torch.ops import dsp
+    from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
+
+    t_phase = t0 = time.perf_counter()
+    sep = serve.build_separator(None, "config.yaml", device="cuda")
+    service = serve_http.SeparationService(
+        sep, pretrained=sep.pretrained, spectrograms=serve._has_matplotlib())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if sep.compute_dtype != torch.bfloat16 or sep.overlap != int(
+            0.1 * SAMPLE_RATE):
+        raise SmokeFailure(f"app separator: {sep.compute_dtype}, overlap "
+                           f"{sep.overlap}; want bf16 and 0.1 s")
+    hop = sep.segment - sep.overlap
+    print(f"app separator (config.yaml: {sep.segment / SAMPLE_RATE:.1f} s "
+          f"chunks, {sep.overlap / SAMPLE_RATE:.1f} s overlap, hop "
+          f"{hop / SAMPLE_RATE:.2f} s) on {sep.device} in "
+          f"{sep.compute_dtype}: set-up {setup_s:.2f} s; spectrograms "
+          f"{'on' if service.spectrograms else 'off (no matplotlib)'}")
+
+    t0 = time.perf_counter()
+    tune = service.autotune_stream_block()
+    tune_s = time.perf_counter() - t0
+    block = tune["block"]
+    print(f"autotune ({tune_s:.2f} s): block steps {tune['measured_s']} s "
+          f"-> floor_s {tune['floor_s']}, per_chunk_s {tune['per_chunk_s']}; "
+          f"chosen block {block}, predicted first audio "
+          f"{tune['first_audio_s']} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        stream = streaming.StreamingSeparator(sep, stems=("vocals",),
+                                              block_chunks=block)
+        stream.feed(np.zeros((2, stream._span), np.float32))
+    except torch.cuda.OutOfMemoryError as e:
+        raise SmokeFailure(f"a block of {block} chunks does not fit: {e}")
+    block_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    print(f"  one block of {block} chunks: peak device memory "
+          f"{block_gib:.2f} of {total_gib:.2f} GiB")
+    del stream
+
+    steps = {"n": 0}
+    block_fn = sep._stream_block
+
+    def counted(*args, **kwargs):
+        steps["n"] += 1
+        return block_fn(*args, **kwargs)
+
+    sep._stream_block = counted
+
+    song = _song(np.random.default_rng(SEED))
+    n = song.shape[-1]
+    pcm16 = (np.clip(song, -1.0, 1.0) * 32767.0).astype(np.int16)
+    wav = _wav_bytes(pcm16)
+    decoded = serve_http.decode_wav_bytes(wav)      # what the stream reads
+
+    httpd = serve_http.make_server(service, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    result = {"setup_s": setup_s, "autotune": tune, "autotune_s": tune_s,
+              "block_peak_gib": block_gib}
+    try:
+        sent = {"separate": 0, "separate_stream": 0, "separate_all": 0}
+        # two direct calls on the app separator's deterministic cuDNN
+        # algorithms; with --profile two more with them off
+        repeat = {}
+        for det in (True, False) if profile else (True,):
+            sep.deterministic = det
+            a, b = (sep.separate_pcm(pcm16, "vocals") for _ in range(2))
+            repeat["deterministic" if det else "free"] = _pcm_diff(a, b)
+        sep.deterministic = True
+        print("separate_pcm twice: max diff "
+              + ", ".join(f"{v} int16 steps with cuDNN's {k} algorithms"
+                          for k, v in repeat.items()))
+        if repeat["deterministic"] > 1:
+            raise SmokeFailure("separate_pcm does not repeat")
+        result["repeat_lsb"] = repeat
+
+        # /api/separate, int16 in and out
+        got = _request(port, "POST", "/api/separate?prompt=vocals", wav)
+        sent["separate"] += 1
+        body = np.frombuffer(got["body"][44:], "<i2").reshape(n, 2).T
+        direct = sep.separate_pcm(pcm16, "vocals")
+        diff = _pcm_diff(body, direct)
+        print(f"/api/separate: {got['wall_s']:.3f} s, {len(got['body'])} "
+              f"bytes, max diff to separate_pcm {diff} int16 steps")
+        if len(got["body"]) != 44 + 4 * n or diff > 1:
+            raise SmokeFailure("/api/separate disagrees with separate_pcm")
+        result["separate_s"] = got["wall_s"]
+
+        # /api/separate/stream at block=auto (counted) and block=8
+        stem = np.clip(sep.separate(decoded, "vocals"), -1.0, 1.0)
+        streams = {}
+        for name, arg in (("auto", "auto"),
+                          (str(STREAM_FIXED_BLOCK), str(STREAM_FIXED_BLOCK))):
+            counting = name == "auto"
+            steps["n"] = 0
+            torch.cuda.synchronize()
+            if counting:
+                _zero_counters()
+            got = _request(port, "POST", "/api/separate/stream?prompt="
+                           f"vocals&block={arg}", wav)
+            if counting:
+                launches = _read_counters()
+            sent["separate_stream"] += 1
+            if len(got["body"]) != 44 + 4 * n or got["length"] != 44 + 4 * n:
+                raise SmokeFailure(f"stream block={arg}: {len(got['body'])} "
+                                   f"bytes, want {44 + 4 * n}")
+            out = np.frombuffer(got["body"][44:], "<i2").reshape(n, 2).T
+            rms = float(np.sqrt(np.mean(
+                (out[:, 1:-1] / 32767.0 - stem[:, 1:-1]) ** 2)))
+            rate = SONG_SECONDS / got["wall_s"]
+            streams[name] = {"block": block if arg == "auto" else int(arg),
+                             "first_audio_s": got["first_s"],
+                             "wall_s": got["wall_s"],
+                             "audio_sec_per_sec": rate, "steps": steps["n"],
+                             "rms_vs_separate": rms}
+            print(f"/api/separate/stream block={arg}: first audio "
+                  f"{got['first_s']:.3f} s, wall {got['wall_s']:.3f} s, "
+                  f"{rate:.2f} audio-sec/sec (1 stem x "
+                  f"{SONG_SECONDS:.0f} s), {steps['n']} block steps, rms "
+                  f"vs separate {rms:.3e} (limit {PATH_RMS_LIMIT:.0e})")
+            if not (math.isfinite(rms) and rms < PATH_RMS_LIMIT):
+                raise SmokeFailure(f"stream block={arg} diverges from "
+                                   "separate")
+            if counting:
+                used = {k: v for k, v in launches.items() if v}
+                streams[name]["launches"] = launches
+                print(f"  launches on the stream: {used} over "
+                      f"{steps['n']} steps")
+                if (launches["layer_tail"] != 10 * steps["n"]
+                        or launches["henc_freq_fused"] != steps["n"]
+                        or steps["n"] <= 0):
+                    raise SmokeFailure("the stream did not run layer_tail "
+                                       "10 and henc_freq_fused once a step")
+        result["stream"] = streams
+
+        # /api/separate_all, 4 stems, against a direct separate_all_pcm
+        # (run once before, so neither side pays a first call)
+        sep.separate_all_pcm(pcm16, stems=STEM_NAMES)
+        got = _request(port, "POST", "/api/separate_all", wav)
+        sent["separate_all"] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pcm, scales = sep.separate_all_pcm(pcm16, stems=STEM_NAMES)
+        direct_s = time.perf_counter() - t0
+        with zipfile.ZipFile(io.BytesIO(got["body"])) as zf:
+            saved = json.loads(zf.read("scales.json"))
+            worst = 0
+            for i, name in enumerate(STEM_NAMES):
+                entry = f"extracted_{name}.wav"
+                data = zf.read(entry)
+                part = np.frombuffer(data[44:], "<i2").reshape(n, 2).T
+                worst = max(worst, _pcm_diff(part, pcm[i]))
+                if saved[entry] != float(scales[i]):
+                    raise SmokeFailure(f"scales.json {entry}: "
+                                       f"{saved[entry]} != {scales[i]}")
+        overhead = got["wall_s"] - direct_s
+        print(f"/api/separate_all: {got['wall_s']:.3f} s against "
+              f"{direct_s:.3f} s for separate_all_pcm: server overhead "
+              f"{overhead * 1e3:.1f} ms; max diff {worst} int16 steps")
+        if worst > 1:
+            raise SmokeFailure("/api/separate_all disagrees with "
+                               "separate_all_pcm")
+        result.update(separate_all_s=got["wall_s"], direct_s=direct_s,
+                      overhead_s=overhead,
+                      separate_all_bytes=len(got["body"]))
+
+        # JSON mode
+        got = _request(port, "POST", "/api/separate?prompt=vocals"
+                       "&format=json", wav)
+        sent["separate"] += 1
+        payload = json.loads(got["body"])
+        with_png = bool(payload["spec_in_png_b64"])
+        if not payload["stem_wav_b64"] or with_png != service.spectrograms:
+            raise SmokeFailure("JSON mode: no stem, or spectrograms "
+                               f"{with_png} with the service's "
+                               f"{service.spectrograms}")
+        print(f"/api/separate?format=json: {got['wall_s']:.3f} s, "
+              f"spectrograms {'carried' if with_png else 'empty'}")
+        result["json_spectrograms"] = with_png
+
+        health = json.loads(_request(port, "GET", "/api/health")["body"])
+        metrics = json.loads(_request(port, "GET", "/api/metrics?format=json"
+                                      )["body"])
+        counted_eps = {k: v["requests"] for k, v in
+                       metrics["endpoints"].items()}
+        busy = metrics["device_busy_seconds"] / metrics["uptime_seconds"]
+        print(f"/api/health: requests_served {health['requests_served']}, "
+              f"stream_block {health['stream_block']}; /api/metrics: "
+              f"{counted_eps}, device lock busy "
+              f"{metrics['device_busy_seconds']:.2f} s of "
+              f"{metrics['uptime_seconds']:.2f} s ({busy:.1%})")
+        if (counted_eps != sent or health["requests_served"] != sum(
+                sent.values()) or health["stream_block"] != block):
+            raise SmokeFailure(f"request counts {counted_eps} / "
+                               f"{health['requests_served']}, sent {sent}")
+        server_s = metrics["endpoints"]["separate_all"]["seconds"]
+        print(f"  /api/separate_all split: {server_s:.3f} s in the server "
+              f"(WAV decode, separate_all_pcm, zip), "
+              f"{result['separate_all_s'] - server_s:.3f} s in transport "
+              f"and the client (upload, "
+              f"{result['separate_all_bytes'] / 1e6:.1f} MB of zip over "
+              "loopback, HTTP parsing)")
+        result.update(requests=sent, busy_share=busy, metrics=metrics,
+                      separate_all_server_s=server_s)
+    finally:
+        sep._stream_block = block_fn
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    blocks = {}                    # block size -> its steps on the streams
+    for s_ in streams.values():
+        blocks[s_["block"]] = blocks.get(s_["block"], 0) + s_["steps"]
+    n_sep = chunked.plan_chunks(n, sep.segment, sep.overlap,
+                                sep.bucket).n_chunks
+    result["kernels"] = stream_kernels(blocks, n_sep)
+
+    mono = torch.from_numpy(song.mean(axis=0))
+    with torch.inference_mode():
+        on_card = dsp.spectrogram_db(mono.cuda()).cpu()
+        on_cpu = dsp.spectrogram_db(mono)
+    err = float((on_card - on_cpu).abs().max())
+    print(f"spectrogram_db {tuple(on_card.shape)} on the card vs the CPU: "
+          f"max diff {err:.3e} dB (limit {SPEC_DB_LIMIT:.0e})")
+    if not err <= SPEC_DB_LIMIT:
+        raise SmokeFailure("spectrogram_db on the card disagrees with the CPU")
+    result["spectrogram_db_err"] = err
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 6 in {result['phase_s']:.1f} s")
+    return result
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -1460,6 +1851,7 @@ def main(argv: list) -> int:
         return 1
     try:
         from audio_to_sheet_music_tpu_torch.ops import build
+        from audio_to_sheet_music_tpu_torch.utils import profiling
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1470,6 +1862,8 @@ def main(argv: list) -> int:
         card = card_line()
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}")
+        global BF16_TENSOR_FLOPS
+        BF16_TENSOR_FLOPS = profiling.peak_tflops() * 1e12
         sources = ["layer_tail", "henc_freq", "dconv_rows", "attn_block",
                    "stft"]
         build_s = build.build_all(sources)
@@ -1487,6 +1881,7 @@ def main(argv: list) -> int:
         path = run_path(profile)
         training = run_training(profile)
         evaluation = run_eval(profile)
+        serving = run_serving(profile)
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
@@ -1494,6 +1889,9 @@ def main(argv: list) -> int:
             sel = "default" if k["name"] in path["launches"] else "opt_in"
             k["eval_launches"] = evaluation["sweeps"][sel]["launches"][
                 k["name"]]
+            k["stream_launches"] = serving["stream"]["auto"]["launches"][
+                k["name"]]
+            k.update(serving["kernels"].get(k["name"], {}))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1503,12 +1901,13 @@ def main(argv: list) -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "compiled": compiled,
          "kernels": kernels, "path": path, "training": training,
-         "eval": evaluation}, indent=1))
+         "eval": evaluation, "serving": serving}, indent=1))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")
-                or k.startswith("eval_") and k != "eval_forms"}
+                         "bound_by", "library_ms", "stream_launches")
+                or k.startswith(("eval_", "stream_"))
+                and not k.endswith("_forms")}
                for kern in kernels]
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -185,6 +185,82 @@ def test_separator_serves_30_second_chunks_through_henc(gen):
     assert pcm.shape == (2, 2, song.shape[-1]) and np.isfinite(scales).all()
 
 
+def _narrow_model(seed: int = 0):
+    """The tiny towers with a 512-wide transformer (8 heads of 64): the
+    narrowest model whose transformer layers route to ``layer_tail``."""
+    from audio_to_sheet_music_tpu_torch.models import atht, clap_text
+
+    g = torch.Generator().manual_seed(seed)
+    return atht.AudioTextHTDemucs(
+        htdemucs.HTDemucs(channels=(8, 16, 24, 32), bottom_channels=512,
+                          t_layers=2, gen=g),
+        clap_text.ClapText(num_layers=2, hidden=128, gen=g),
+        atht.Head(decoder_channels=(32, 16, 8, 8, 4), gen=g))
+
+
+@pytest.mark.parametrize("block", [1, 3])
+def test_stream_on_the_card_matches_offline(gen, block):
+    """The stream's blocks run other batch sizes than the offline sweep, so
+    cuBLAS and cuDNN may pick other algorithms: held to the path-rms gate
+    (1e-3) away from the two edge samples, as ``chip_smoke.py``'s phase 6
+    holds the full-width stream."""
+    from audio_to_sheet_music_tpu_torch.infer import (Separator,
+                                                      StreamingSeparator)
+
+    sep = Separator(_narrow_model(), segment_seconds=1.0,
+                    overlap_seconds=0.1)
+    song = (0.3 * np.random.default_rng(0).standard_normal((2, 44100 * 5))
+            ).astype(np.float32)
+    offline = sep.separate(song, "vocals")
+    stream = StreamingSeparator(sep, stems=("vocals",), block_chunks=block)
+    pieces = []
+    for start in range(0, song.shape[-1], 30000):
+        pieces += stream.feed(song[:, start:start + 30000])
+    out = np.concatenate(pieces + [stream.flush()], axis=-1)[0]
+    assert stream._acc is None and out.shape == song.shape
+    rms = np.sqrt(np.mean((out[:, 1:-1] - offline[:, 1:-1]) ** 2))
+    assert np.isfinite(out).all() and rms < 1e-3, rms
+
+
+def test_separate_pcm_repeats_bit_for_bit_on_the_card(gen):
+    """A separator with ``deterministic=True`` (the serving app's) runs
+    its chunk programs on cuDNN's deterministic algorithms: two calls on
+    one song give the same bytes, and the process's setting comes back."""
+    from audio_to_sheet_music_tpu_torch.infer import Separator
+
+    sep = Separator(_narrow_model(), segment_seconds=1.0,
+                    overlap_seconds=0.1, deterministic=True)
+    before = torch.backends.cudnn.deterministic
+    song = (0.3 * np.random.default_rng(2).standard_normal((2, 44100 * 4))
+            ).astype(np.float32)
+    np.testing.assert_array_equal(sep.separate_pcm(song, "bass"),
+                                  sep.separate_pcm(song, "bass"))
+    assert torch.backends.cudnn.deterministic == before
+
+
+def test_separate_stream_on_the_card_runs_the_kernels(gen):
+    from audio_to_sheet_music_tpu_torch.apps import serve_http
+    from audio_to_sheet_music_tpu_torch.infer import Separator
+
+    sep = Separator(_narrow_model(), segment_seconds=1.0,
+                    overlap_seconds=0.1)
+    service = serve_http.SeparationService(sep, spectrograms=False)
+    song = (0.3 * np.random.default_rng(1).standard_normal((2, 44100 * 4))
+            ).astype(np.float32)
+    wav = serve_http.encode_wav_bytes(song)
+    service.separate_stream(wav, "vocals", lambda n: None, lambda b: None,
+                            block_chunks=2)        # warm
+    fused_attn.layer_tail.launches = fused_enc.henc_freq_fused.launches = 0
+    body = []
+    service.separate_stream(wav, "vocals", body.append, body.append,
+                            block_chunks=2)
+    steps = 3                 # 4 s at a 0.9 s hop: 5 chunks, blocks of 2
+    assert fused_attn.layer_tail.launches == 4 * steps   # 2 layers a branch
+    assert fused_enc.henc_freq_fused.launches == steps
+    total = body[0]
+    assert total == 44 + 4 * song.shape[-1] == sum(map(len, body[1:]))
+
+
 def _dconv(c, gen):
     d = htdemucs.DConv(c, gen)
     for blk in d.layers:

@@ -340,7 +340,8 @@ def test_cli_benchmark_runs_on_the_card_by_default(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--models", "clapsep"],
-                                  ["--plot-spectrograms"], ["--use-wandb"]])
+                                  ["--models", "ours", "clapsep"],
+                                  ["--use-wandb"]])
 def test_cli_benchmark_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["benchmark", *argv])

@@ -72,6 +72,11 @@ def test_import_leaves_jax_unloaded():
             "from audio_to_sheet_music_tpu_torch.eval import harness, models\n"
             "from audio_to_sheet_music_tpu_torch.ops import (fused_dconv, "
             "fused_stft, select)\n"
+            "from audio_to_sheet_music_tpu_torch.infer import streaming\n"
+            "from audio_to_sheet_music_tpu_torch.apps import (serve, "
+            "serve_http, spectrogram_tool)\n"
+            "from audio_to_sheet_music_tpu_torch.utils import (plotting, "
+            "profiling)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'audio_to_sheet_music_tpu.'))"
             " or m == 'audio_to_sheet_music_tpu']\n"
@@ -102,3 +107,33 @@ def test_the_port_never_calls_library_attention():
     hits = [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")
             if "scaled_dot_product_attention" in p.read_text()]
     assert not hits, hits
+
+
+def test_serving_modules_import_without_optional_packages():
+    """The card machine has no matplotlib, Gradio or yt-dlp: the serving
+    modules import without them, and the serve app's choices fall back
+    (``--ui auto`` -> http, spectrograms off) instead of failing."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('matplotlib', 'gradio', "
+            "'yt_dlp'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "from audio_to_sheet_music_tpu_torch.apps import (serve, "
+            "serve_http, separate, spectrogram_tool)\n"
+            "from audio_to_sheet_music_tpu_torch.utils import (plotting, "
+            "profiling)\n"
+            "from audio_to_sheet_music_tpu_torch.infer import streaming\n"
+            "from audio_to_sheet_music_tpu_torch import cli\n"
+            "assert serve.pick_ui('auto') == 'http'\n"
+            "assert not serve._has_matplotlib()\n"
+            "try:\n"
+            "    serve.download_youtube_audio('no-such-video')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'yt-dlp' in str(e)\n"
+            "else:\n"
+            "    raise AssertionError('no error without yt-dlp')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
