@@ -3,7 +3,7 @@
 
     python -m audio_to_sheet_music_tpu_torch.apps.separate \\
         --track <track.npy | track_dir | mixture.wav | track.stem.mp4> \\
-        [--checkpoint params.npz] [--stems drums bass other vocals piano] \\
+        [--checkpoint model.pt|params.npz|ckpt_dir] [--stems drums bass other vocals piano] \\
         [--output-dir out] [--plots] \\
         [--device cuda|cpu] [--kernels default|opt_in|none]
 
@@ -14,8 +14,9 @@ a ``.stem.mp4``) gets each stem's SDR against its ground truth in
 ``sdr_report.json``; ``--plots`` writes a spectrogram comparison PNG per
 stem (matplotlib).  A plain WAV without ``--plots`` takes the int16 path:
 ``separate_all_pcm`` at absolute level, the PCM bytes written as they are.
-Without ``--checkpoint`` the model is the seeded init with the committed
-trained head grafted on.
+``--checkpoint`` goes through ``atht.load_params`` (a reference ``.pt``, an
+``.npz`` of the whole tree, or a directory the trainer wrote); without it
+the model is the seeded init with the committed trained head grafted on.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def main(argv=None) -> None:
                     help=".npy track cache, MusDB wav directory, .wav "
                          "mixture or .stem.mp4")
     ap.add_argument("--checkpoint", default=None,
-                    help=".npz of the whole param tree (default: seeded "
+                    help="reference .pt, .npz of the whole param tree or "
+                         "a training checkpoint directory (default: seeded "
                          "init + the committed trained head)")
     ap.add_argument("--stems", nargs="+",
                     default=["drums", "bass", "other", "vocals"])

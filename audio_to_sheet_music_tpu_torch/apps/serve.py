@@ -27,34 +27,18 @@ import numpy as np
 SAMPLE_RATE = 44100
 
 
-def _load_model(checkpoint: str | None):
-    """The seeded model (seed 0) with ``checkpoint``'s weights: a training
-    checkpoint directory's head, or ``atht.load_from_env``'s (an ``.npz``
-    of the whole tree, else the committed trained head)."""
-    from ..models import atht
-
-    if not (checkpoint and Path(checkpoint).is_dir()):
-        return atht.load_from_env(checkpoint)
-    import torch
-
-    from ..train.checkpoint import STATE_FILE
-
-    model = atht.init_from_env(0)
-    saved = torch.load(Path(checkpoint) / STATE_FILE, map_location="cpu",
-                       weights_only=True)
-    model.head.load_state_dict(saved["head"], strict=True)
-    return model
-
-
 def build_separator(checkpoint: str | None, config: str | None = None,
                     device: str = "cuda", kernels: str = "default"):
     """The app-protocol ``Separator``: segment and overlap from the config's
-    ``data`` section (6 s and 0.1 s without a config), the checkpoint from
-    ``training.resume_from`` when that file exists, and normalised CLAP
-    text features; cuDNN's deterministic algorithms, so a request repeats
-    bit for bit.  The config's ``model.device`` is not read: the device is
+    ``data`` section (6 s and 0.1 s without a config), the model from
+    ``atht.load_from_env`` with ``checkpoint`` (or ``training.resume_from``
+    when that exists: a ``.pt``, an ``.npz`` or a training checkpoint
+    directory), the tokenizer as the model's ``pretrained`` mark asks, and
+    normalised CLAP text features; cuDNN's deterministic algorithms, so a
+    request repeats bit for bit.  The config's ``model.device`` is not read: the device is
     ``device``."""
     from ..infer.session import Separator
+    from ..models import atht
 
     segment_s, overlap_s = 6.0, 0.1
     if config and Path(config).exists():
@@ -70,9 +54,9 @@ def build_separator(checkpoint: str | None, config: str | None = None,
                 warnings.warn(
                     f"training.resume_from={cfg.training.resume_from!r} "
                     "does not exist; serving with the default head")
-    return Separator(_load_model(checkpoint), segment_seconds=segment_s,
-                     overlap_seconds=overlap_s, device=device,
-                     normalize_text=True, pretrained=False, kernels=kernels,
+    return Separator(atht.load_from_env(checkpoint),
+                     segment_seconds=segment_s, overlap_seconds=overlap_s,
+                     device=device, normalize_text=True, kernels=kernels,
                      deterministic=True)
 
 

@@ -5,21 +5,26 @@
         [--max-steps-per-epoch N]
 
     python -m audio_to_sheet_music_tpu_torch.cli benchmark \
-        [--models ours ours-random htdemucs] [--synthetic \
+        [--models ours ours-random htdemucs clapsep] [--synthetic \
         [--synthetic-tracks N]] [--test-dir DIR] [--max-tracks N] \
-        [--checkpoint params.npz] [--output-dir results] \
-        [--plot-spectrograms] [--device cuda|cpu] \
+        [--checkpoint model.pt|params.npz|ckpt_dir] [--output-dir results] \
+        [--plot-spectrograms] [--use-wandb] [--device cuda|cpu] \
         [--kernels default|opt_in|none]
 
 ``train`` is the counterpart of the JAX package's ``cli.train_main``: it
-reads the reference-schema YAML config and runs ``train.trainer.train``.
-``benchmark`` is the counterpart of ``cli.benchmark_main``: it scores each
-model's SDR and SI-SDR on the test tracks (``--test-dir``, else the
-config's ``data.test_dir``; ``--synthetic`` writes 12 s ``data/synth.py``
-tracks instead), prints the tables and writes
-``<output-dir>/evaluation_results.json``; ``--plot-spectrograms`` adds one
-all-stems PNG a track and model under ``<output-dir>/spectrograms/``
-(matplotlib).  Both run on the card unless
+reads the reference-schema YAML config and runs ``train.trainer.train``
+(whose model comes from ``training.resume_from`` when that is a reference
+``.pt``).  ``benchmark`` is the counterpart of ``cli.benchmark_main``: it
+scores each model's SDR and SI-SDR on the test tracks (``--test-dir``,
+else the config's ``data.test_dir``; ``--synthetic`` writes 12 s
+``data/synth.py`` tracks instead), prints the tables and writes
+``<output-dir>/evaluation_results.json``; ``--checkpoint`` goes through
+``atht.load_params``; CLAPSep is skipped when the weights file it is
+told to load is missing; ``--plot-spectrograms``
+adds one all-stems PNG a track and model under
+``<output-dir>/spectrograms/`` (matplotlib); ``--use-wandb`` logs each
+model's aggregates to Weights & Biases where ``wandb`` imports.  Both run
+on the card unless
 ``--device cpu``; ``--kernels`` picks the hand-written kernels
 (``ops/select.py``).  Without a ``--config`` file the config's defaults
 apply.  ``ATSM_TINY_MODEL=1`` builds the models at test size.
@@ -61,19 +66,22 @@ def benchmark_main(argv=None) -> None:
         prog="audio_to_sheet_music_tpu_torch.cli benchmark",
         description="Separation benchmark (SDR / SI-SDR per stem)")
     ap.add_argument("--models", nargs="+", default=["ours"],
-                    choices=["ours", "ours-random", "htdemucs"])
+                    choices=["ours", "ours-random", "htdemucs", "clapsep"])
     ap.add_argument("--config", default="config.yaml")
     ap.add_argument("--test-dir", default=None)
     ap.add_argument("--output-dir", default="results")
     ap.add_argument("--max-tracks", type=int, default=None)
     ap.add_argument("--checkpoint", default=None,
-                    help="params .npz of the whole model for 'ours'")
+                    help="reference .pt, .npz of the whole model or a "
+                         "training checkpoint directory for 'ours'")
     ap.add_argument("--synthetic", action="store_true",
                     help="run on synthetic tracks instead of a dataset")
     ap.add_argument("--synthetic-tracks", type=int, default=5,
                     help="number of synthetic tracks")
     ap.add_argument("--plot-spectrograms", action="store_true",
                     help="write per-track all-stems spectrogram PNGs")
+    ap.add_argument("--use-wandb", action="store_true",
+                    help="log aggregates to Weights & Biases")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--kernels", default="default",
                     choices=["default", "opt_in", "none"])
@@ -82,14 +90,18 @@ def benchmark_main(argv=None) -> None:
     from .config import Config
     from .data import discover_tracks, synthetic_tracks
     from .eval import evaluate_model, format_results_table, save_results
-    from .eval.models import HTDemucsBaseline, OursModel
+    from .eval.models import CLAPSepModel, HTDemucsBaseline, OursModel
+    from .infer.session import open_device
     from .models import atht
 
     cfg = (Config.from_yaml(args.config) if Path(args.config).exists()
            else Config())
+    open_device(args.device, "benchmark")     # no card: raise, skip nothing
     model = atht.load_from_env(args.checkpoint)
-    print("benchmark: no converted checkpoint loaded; models run with random "
-          "or .npz weights, so scores are not pretrained-baseline numbers")
+    if not model.pretrained:
+        print("benchmark: no converted checkpoint loaded; models run with "
+              "random or .npz weights, so scores are not pretrained-baseline "
+              "numbers")
     run = dict(device=args.device, kernels=args.kernels)
     out_dir = Path(args.output_dir)
 
@@ -98,11 +110,20 @@ def benchmark_main(argv=None) -> None:
         if name == "ours":
             registry[OursModel.name] = OursModel(model, **run)
         elif name == "ours-random":
-            # the ablation row: the same towers with the head at its init
+            # the ablation row: the same towers, the head at its init
             registry["AudioTextHTDemucs (Ours, random head)"] = OursModel(
                 atht.init_from_env(0), **run)
         elif name == "htdemucs":
-            m = HTDemucsBaseline(model.htdemucs, **run)
+            m = HTDemucsBaseline(model.htdemucs, pretrained=model.pretrained,
+                                 **run)
+            registry[m.name] = m
+        elif name == "clapsep":
+            try:            # a named weights file that is missing: skip
+                m = CLAPSepModel(clap=model.clap, pretrained=model.pretrained,
+                                 device=args.device)
+            except RuntimeError as e:
+                print(f"skipping {name}: {e}")
+                continue
             registry[m.name] = m
 
     with tempfile.TemporaryDirectory(prefix="atsm_bench_") as tmp:
@@ -128,6 +149,26 @@ def benchmark_main(argv=None) -> None:
     out = out_dir / "evaluation_results.json"
     save_results(all_results, out)
     print(f"\nresults written to {out}")
+    if args.use_wandb:
+        _log_wandb(all_results)
+
+
+def _log_wandb(all_results) -> None:
+    """Each model's aggregate SDR and SI-SDR as one wandb run; without
+    ``wandb`` (or when it fails) one line says so."""
+    try:
+        import wandb
+
+        from .eval import aggregate_results
+
+        run = wandb.init(project="audio-text-htdemucs-benchmark")
+        for name, results in all_results.items():
+            agg = aggregate_results(results)
+            run.log({f"{name}/sdr_{k}": v for k, v in agg["sdr"].items()})
+            run.log({f"{name}/sisdr_{k}": v for k, v in agg["sisdr"].items()})
+        run.finish()
+    except Exception as e:  # noqa: BLE001 - logging must not fail the run
+        print(f"wandb logging skipped: {e}")
 
 
 def _plotting(separate_all, spec_dir: Path, device: str):

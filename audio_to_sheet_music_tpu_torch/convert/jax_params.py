@@ -6,6 +6,13 @@ pure renaming with no transposes.  The names are the ones the JAX package's
 own copy of that path-to-name translation (``tree_paths`` / ``translate``)
 so the port never imports the JAX package.
 
+The trees it carries: ``atht.init`` / ``init_tiny`` (``AudioTextHTDemucs``)
+and its parts, and the towers and baseline of the evaluation path:
+``clap_audio.clap_audio_init`` into ``models.clap_audio.ClapAudio``,
+``clap.clap_init`` into ``models.clap.Clap`` (its two scalar temperatures
+included) and ``clapsep.clapsep_init`` into ``models.clapsep.ClapSep``,
+each with ``load_state_dict(strict=True)``.
+
 Two sources:
 
 - an in-memory param pytree (nested dicts/lists) whose leaves are numpy

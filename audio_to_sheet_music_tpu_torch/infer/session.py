@@ -107,12 +107,13 @@ class Separator:
                  compute_dtype: torch.dtype | None = None,
                  device: str | torch.device = "cuda", tokenizer=None,
                  normalize_text: bool = False,
-                 sample_rate: int = SAMPLE_RATE, pretrained: bool = False,
+                 sample_rate: int = SAMPLE_RATE,
                  kernels: Kernels = True, deterministic: bool = False):
         """``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the
         host.  ``compute_dtype`` defaults to bf16 on the card and f32 on the
-        CPU.  ``pretrained=True`` makes the tokenizer refuse the hash
-        fallback, which is meaningless for a pretrained text tower.
+        CPU.  A model marked ``pretrained`` (``atht.load_params`` of a
+        ``.pt`` marks it) makes the tokenizer refuse the hash fallback,
+        which is meaningless for a pretrained text tower.
         ``kernels`` picks the hand-written kernels (``ops.select``: the
         default selection, ``"opt_in"``, or ``False`` for the encoder layer
         by layer in PyTorch ops, the yardstick the kernels are timed
@@ -128,8 +129,9 @@ class Separator:
                              else torch.bfloat16)
         self.compute_dtype = compute_dtype
         self.normalize_text = normalize_text
-        self.pretrained = pretrained
-        self.tokenizer = tokenizer or default_tokenizer(require_real=pretrained)
+        self.pretrained = model.pretrained
+        self.tokenizer = tokenizer or default_tokenizer(
+            require_real=model.pretrained)
         self.bucket = "auto"
         self.kernels = resolve(kernels)
         self.deterministic = deterministic

@@ -107,6 +107,9 @@ class AudioTextHTDemucs(nn.Module):
         self.clap = clap
         self.head = head
         self.requires_grad_(False)
+        # True once converted reference weights are loaded (``load_params``
+        # of a ``.pt``): the tokenizer then refuses the hash fallback
+        self.pretrained = False
 
 
 def init(seed: int = 0, materialize: bool = True) -> AudioTextHTDemucs:
@@ -159,15 +162,36 @@ def graft_head(model: AudioTextHTDemucs, path: str | Path = DEFAULT_HEAD
 
 def load_params(model: AudioTextHTDemucs, checkpoint: str | Path | None = None
                 ) -> AudioTextHTDemucs:
-    """No checkpoint: graft the committed trained head.  An ``.npz`` of the
-    whole param tree (JAX ``save_params_npz`` of ``atht.init`` params)
-    replaces every weight, strictly."""
+    """The commands' one checkpoint loader, the JAX ``atht.load_params``:
+
+    - no checkpoint: graft the committed trained head;
+    - ``*.pt``: a reference ``AudioTextHTDemucs`` checkpoint, converted
+      (``convert.torch_import``, CLAP non-strict as the JAX loader does);
+      the model is then marked ``pretrained``, so a ``Separator`` built on
+      it refuses the hash-tokenizer fallback;
+    - ``*.npz``: the whole param tree (JAX ``save_params_npz`` of
+      ``atht.init`` params), strictly;
+    - a directory: a checkpoint the port's trainer wrote
+      (``train/checkpoint.py``), whose head is loaded strictly.
+    """
     if checkpoint is None:
         return graft_head(model)
-    if not str(checkpoint).endswith(".npz"):
-        raise ValueError(f"unsupported checkpoint {checkpoint!r}: expected .npz")
-    model.load_state_dict(jax_params.state_dict_from_npz(checkpoint),
-                          strict=True)
+    path = Path(checkpoint)
+    if path.suffix == ".pt":
+        from ..convert.torch_import import import_atht_checkpoint
+
+        import_atht_checkpoint(path, strict=False, model=model)
+        model.pretrained = True
+    elif path.is_dir():
+        from ..train.checkpoint import load_head
+
+        load_head(path, model.head)
+    elif path.suffix == ".npz":
+        model.load_state_dict(jax_params.state_dict_from_npz(path),
+                              strict=True)
+    else:
+        raise ValueError(f"unsupported checkpoint {checkpoint!r}: expected "
+                         ".pt, .npz or a training checkpoint directory")
     return model
 
 

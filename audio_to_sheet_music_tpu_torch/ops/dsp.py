@@ -55,20 +55,22 @@ def _window(n_fft: int, device) -> torch.Tensor:
 
 
 def stft(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,
-         kernel: bool = False) -> torch.Tensor:
-    """Centred, normalised STFT: ``(..., T)`` -> complex ``(..., F, frames)``.
-    ``kernel=True`` runs ``fused_stft.stft`` where ``fused_stft.supports``
-    the geometry (the JAX routing test)."""
+         kernel: bool = False, normalized: bool = True) -> torch.Tensor:
+    """Centred STFT: ``(..., T)`` -> complex ``(..., F, frames)``, scaled by
+    ``n_fft ** -0.5`` when ``normalized`` (torch's convention; the mel
+    front end takes it unscaled).  ``kernel=True`` runs ``fused_stft.stft``
+    where ``fused_stft.supports`` the geometry (the JAX routing test)."""
     n_frames = x.shape[-1] // hop + 1
     xp = pad_reflect_safe(x.float(), n_fft // 2, n_fft // 2)
     lead = xp.shape[:-1]
     flat = xp.reshape(-1, xp.shape[-1])
     if kernel and fused_stft.supports(n_fft, hop):
         z = fused_stft.stft(flat.contiguous(), n_fft, hop, n_frames)
-        z = z * (1.0 / math.sqrt(n_fft))
+        if normalized:
+            z = z * (1.0 / math.sqrt(n_fft))
     else:
         z = torch.stft(flat, n_fft, hop, window=_window(n_fft, x.device),
-                       win_length=n_fft, center=False, normalized=True,
+                       win_length=n_fft, center=False, normalized=normalized,
                        return_complex=True)
     return z.reshape(*lead, *z.shape[-2:])
 

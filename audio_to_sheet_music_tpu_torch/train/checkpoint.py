@@ -74,6 +74,16 @@ def load_checkpoint(path: str | Path, state: TrainState
     return state, int(meta.get("epoch", -1)), meta.get("metrics", {})
 
 
+def load_head(path: str | Path, head: torch.nn.Module) -> torch.nn.Module:
+    """The head of the checkpoint directory ``path`` into ``head``,
+    strictly (the serving and separation commands' view of a training
+    run)."""
+    saved = torch.load(Path(path) / STATE_FILE, map_location="cpu",
+                       weights_only=True)
+    head.load_state_dict(saved["head"], strict=True)
+    return head
+
+
 def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
     """Auto-resume hook: the ``latest`` directory if present."""
     p = Path(ckpt_dir) / "latest"

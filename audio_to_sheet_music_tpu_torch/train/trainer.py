@@ -1,21 +1,22 @@
 """Head-only training: the port's counterpart of
 ``audio_to_sheet_music_tpu/train/trainer.py``.
 
-``train(cfg)`` wires: config -> model (given, or the seeded init with the
+``train(cfg)`` wires: config -> model (given; else a reference ``.pt`` in
+``training.resume_from``, converted; else the seeded init with the
 committed trained head) on ``cuda`` unless ``device="cpu"`` -> decode-once
-datasets + prefetching loader -> AdamW / cosine / clip over the head ->
+datasets + a loader (the C++ segment loader for ``num_workers >= 1``, else
+the prefetching Python one) -> AdamW / cosine / clip over the head ->
 auto-resume from ``latest`` -> the epoch loop -> validation with per-stem
 SDR buckets -> epoch / best / latest checkpoints -> metric logging (JSONL
-always, wandb when configured and importable).
+always; wandb when configured and importable, with the separation triptych
+of one example at every logged step).
 
 The kernel selection (``ops.select``) is the caller's: the default runs
 ``layer_tail`` + ``henc_freq_fused``; ``"opt_in"`` runs ``henc_freq_fused``,
 ``dconv_rows``, ``attn_block`` and the STFT kernel.  All of them sit in the
 frozen encoder, which runs without autograd.
 
-Not here yet: the data-parallel mesh argument, and the C++ segment loader
-(``num_workers >= 1``), which raises instead of quietly taking the Python
-loader.
+Not here yet: the data-parallel mesh argument.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from ..config import Config
 from ..data import BatchLoader, StemSegmentDataset, discover_tracks
+from ..data.native_loader import NativeBatchLoader
 from ..infer.session import open_device
 from ..models import atht
 from ..ops.select import Kernels
@@ -66,6 +68,21 @@ class MetricLogger:
         if self._wandb is not None:
             self._wandb.log(rec, step=step)
 
+    @property
+    def media_active(self) -> bool:
+        return self._wandb is not None
+
+    def log_media(self, mixture, target, estimate, stem: str, step: int,
+                  device) -> None:
+        """The separation triptych and the three clips of one example."""
+        if self._wandb is None:
+            return
+        from ..utils import wandb_log
+
+        wandb_log.log_separation_to_wandb(mixture, target, estimate, stem,
+                                          step=step, prefix="train_media",
+                                          device=device)
+
     def close(self) -> None:
         self._jsonl.close()
 
@@ -82,12 +99,30 @@ def _subset(dataset: StemSegmentDataset, pct: float, seed: int = 0):
 
 
 def _default_model(cfg: Config) -> atht.AudioTextHTDemucs:
+    """A reference ``.pt`` in ``training.resume_from``, converted (the model
+    is then ``pretrained``), else the seeded init with the committed
+    trained head."""
     resume = cfg.training.resume_from
-    if resume and Path(resume).suffix == ".pt":
-        raise NotImplementedError(
-            "training.resume_from=*.pt (a reference checkpoint to convert) "
-            "is not ported yet; pass a model, or an .npz via atht.load_params")
-    return atht.load_params(atht.init(0))
+    pt = resume if resume and Path(resume).suffix == ".pt" else None
+    return atht.load_params(atht.init(0), pt)
+
+
+def _train_loader(cfg: Config, tracks, tokenizer):
+    """The C++ segment loader with ``num_workers`` threads when asked for
+    and every track is a decode-once ``npy`` cache with no percentage
+    subset; else the Python ``BatchLoader``, as in the JAX trainer."""
+    seg = cfg.data.segment_samples
+    if (cfg.training.num_workers >= 1 and cfg.data.pct_train >= 1.0
+            and all(t.kind == "npy" for t in tracks)):
+        return NativeBatchLoader(
+            [t.path for t in tracks], seg, cfg.training.batch_size, tokenizer,
+            n_threads=cfg.training.num_workers, augment=cfg.data.augment,
+            random_segments=cfg.data.random_segments)
+    ds = _subset(StemSegmentDataset(tracks, seg,
+                                    random_segments=cfg.data.random_segments,
+                                    augment=cfg.data.augment),
+                 cfg.data.pct_train)
+    return BatchLoader(ds, cfg.training.batch_size, tokenizer)
 
 
 def put_batch(raw: Mapping[str, np.ndarray], device: torch.device
@@ -99,22 +134,33 @@ def put_batch(raw: Mapping[str, np.ndarray], device: torch.device
             for k, v in raw.items() if k != "stem_index"}
 
 
+def _log_media(logger: MetricLogger, model, batch, raw, step: int,
+               compute_dtype, kernels, device) -> None:
+    """The first example of ``batch`` through the model as it is now."""
+    with torch.no_grad():
+        est = atht.forward(model, batch["mixture"][:1],
+                           batch["input_ids"][:1],
+                           batch["attention_mask"][:1], compute_dtype,
+                           kernels)
+    stem = STEM_NAMES[int(raw["stem_index"][0])]
+    logger.log_media(raw["mixture"][0], raw["target"][0],
+                     est[0].float().cpu().numpy(), stem, step, device)
+
+
 def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
-          max_steps_per_epoch: int | None = None, pretrained: bool = False,
+          max_steps_per_epoch: int | None = None,
           device: str | torch.device = "cuda", kernels: Kernels = True
           ) -> Dict[str, float]:
     """Run training; returns ``{"best_sdr", "final_epoch", "final_loss",
     "steps_per_s"}``.
 
-    ``model`` defaults to the seeded init with the committed trained head.
-    Pass ``pretrained=True`` with converted real weights: the tokenizer then
-    refuses the hash fallback.  ``device`` defaults to ``cuda``.
+    ``model`` defaults to a reference ``.pt`` named by
+    ``training.resume_from``, converted, else the seeded init with the
+    committed trained head.  A model marked ``pretrained`` (converted real
+    weights: ``atht.load_params`` of a ``.pt`` marks it) makes the tokenizer
+    refuse the hash fallback.  ``device`` defaults to ``cuda``.
     """
     device = open_device(device, "train")
-    if cfg.training.num_workers >= 1:
-        raise NotImplementedError(
-            "training.num_workers >= 1 selects the C++ segment loader, which "
-            "is not ported yet; set num_workers: 0")
     compute_dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
                      else torch.float32)
     out_dir = Path(cfg.wandb.output_dir)
@@ -122,7 +168,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     if model is None:
         model = _default_model(cfg)
     model = model.to(device)
-    tokenizer = default_tokenizer(require_real=pretrained)
+    tokenizer = default_tokenizer(require_real=model.pretrained)
 
     train_tracks = discover_tracks(cfg.data.train_dir)
     val_tracks = discover_tracks(cfg.data.test_dir)
@@ -133,10 +179,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
               flush=True)
         val_tracks = train_tracks
     seg = cfg.data.segment_samples
-    train_ds = _subset(StemSegmentDataset(
-        train_tracks, seg, random_segments=cfg.data.random_segments,
-        augment=cfg.data.augment), cfg.data.pct_train)
-    train_loader = BatchLoader(train_ds, cfg.training.batch_size, tokenizer)
+    train_loader = _train_loader(cfg, train_tracks, tokenizer)
     val_ds = _subset(StemSegmentDataset(val_tracks, seg), cfg.data.pct_test,
                      seed=1)
     val_loader = BatchLoader(val_ds, cfg.training.batch_size, tokenizer,
@@ -187,10 +230,14 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
         for i, raw in enumerate(train_loader):
             if i >= steps_per_epoch:
                 break
-            metrics = train_step(state, put_batch(raw, device))
+            batch = put_batch(raw, device)
+            metrics = train_step(state, batch)
             if state.step % cfg.wandb.log_every == 0:
                 logger.log({f"train/{k}": float(v) for k, v in metrics.items()},
                            state.step)
+                if logger.media_active:
+                    _log_media(logger, state.model, batch, raw, state.step,
+                               compute_dtype, kernels, device)
             loss_sum = loss_sum + metrics["loss/total"]
             n_steps += 1
         mean_loss = float(loss_sum) / n_steps if n_steps else float("nan")

@@ -96,6 +96,33 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    phase 2.  Last, ``spectrogram_db`` on the card against the CPU within
    1e-2 dB.
 
+7. Reference checkpoints, the segment loader and the towers of the eval
+   path (after phase 6; numbers under ``checkpoints_towers``):
+   ``export_atht_checkpoint`` of phase 3's model to a ``.pt`` (size, write
+   and read seconds), ``atht.load_params(atht.init(1), path)`` equal to it
+   in every tensor and marked pretrained; a ``Separator`` on it refuses to
+   start without a BPE vocabulary, then, with ``ATSM_TOKENIZER_DIR`` at a
+   ``vocab.json`` + ``merges.txt`` the phase writes, serves the 60 s song
+   with phase 3's launch counts (set to 0 just before, read just after);
+   ``train`` with ``training.resume_from`` at the ``.pt``, given the model
+   it would convert from there so that its towers can be read after, takes
+   2 steps and a validation batch (finite loss, towers unchanged).  The C++
+   segment loader built by g++ (its seconds), ``train`` with
+   ``num_workers=4`` for an epoch of phase 4's tracks, a native batch's
+   items checked as slices of the tracks, and for each loader (C++,
+   Python) its batches/s and, from one traced run of the default train
+   steps it feeds (``torch.profiler``, device activity only), their steps/s
+   and the device's busy share.  The full-width CLAP audio
+   tower (HTSAT, f32) on phase 3's 4 stems at 48 kHz: features unit-norm,
+   the 4 x 4 similarity finite, one stem on the card within 1e-4 of max|ref|
+   of the CPU, ms a call.  CLAPSep at full width (``CLAPSepModel``, f32) on
+   the 60 s song, each stem's wall, its chunks and the peak memory; one
+   10 s chunk on the card within 1e-4 of rms(ref) of the CPU; ``cli
+   benchmark`` with "ours" and "clapsep" (the reference schema, the ±30 dB
+   clamp).  Last, the embedding tool's ``embed_prompts`` and
+   ``analyze_clustering`` on the card against the CPU within 1e-4, and its
+   Word2Vec leg.
+
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
 flash, out-projection GEMM, LayerNorm, FF1, FF2, each with its rate and
@@ -126,8 +153,8 @@ default sweep for the first two and its opt-in sweep for the others;
 ``stream_*`` for ``layer_tail`` and ``henc_freq_fused`` the numbers at the
 stream's block shapes, means per launch over phase 6's two streams), and
 ``{"ok": true, "device": {...}}``.  The same numbers, with each form's and
-the training, eval and serving phases' (and the profile, when asked), are
-written to ``build/chip_smoke.json``.
+the training, eval, serving and phase 7's (and the profile, when asked),
+are written to ``build/chip_smoke.json``.
 
 Rates for the bounds are the H100 SXM data sheet's dense peaks: the bf16
 tensor-core peak from ``utils/profiling.peak_tflops`` (989 TFLOP/s, keyed on
@@ -956,6 +983,37 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+def _device_busy_us(prof) -> float:
+    """The union of the device intervals a profiler saw, in us."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def device_busy(fn) -> dict:
+    """Wall and device-busy ms of one call of ``fn``, traced with the device
+    activity only: without the host ops ``profile_device`` records, the
+    trace is read back in a fraction of the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = _device_busy_us(prof)
+    if not busy:
+        raise SmokeFailure("the profiler saw no device time")
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3}
+
+
 def profile_device(fn, label: str) -> dict:
     """Device time by kernel over one call of ``fn``, and the share of the
     wall time in which some kernel or copy ran on the card."""
@@ -968,13 +1026,7 @@ def profile_device(fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:                 # union of the device intervals, in us
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _device_busy_us(prof)
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
@@ -1073,7 +1125,8 @@ def run_path(profile: bool) -> dict:
         result["profile"] = profile_device(lambda: sep.separate_all_pcm(song),
                                            "one separate_all_pcm")
         result["per_op_audio_sec_per_sec"] = per_op_rate(model, song)
-    return result
+    stems = pcm.astype(np.float32) * (scales[:, None, None] / 32767.0)
+    return result, model, stems
 
 
 def per_op_rate(model, song: np.ndarray) -> float:
@@ -1364,15 +1417,18 @@ def _decoder_dconv_launches(ht, chunks: torch.Tensor) -> dict:
             "encoder_launches": enc}
 
 
-def _benchmark_cli(out_dir: Path, kernels: str) -> dict:
-    """``cli benchmark`` on synthetic tracks with all three models."""
+def _benchmark_cli(out_dir: Path, kernels: str,
+                   models=("ours", "ours-random", "htdemucs"),
+                   names=EVAL_MODELS) -> dict:
+    """``cli benchmark`` on synthetic tracks with ``models`` (by default the
+    three of phase 5), whose results must be ``names``."""
     from audio_to_sheet_music_tpu_torch import cli
 
     cli.main(["benchmark", "--synthetic", "--synthetic-tracks",
-              str(EVAL_TRACKS), "--models", "ours", "ours-random", "htdemucs",
+              str(EVAL_TRACKS), "--models", *models,
               "--output-dir", str(out_dir), "--kernels", kernels])
     payload = json.loads((out_dir / "evaluation_results.json").read_text())
-    if set(payload) != set(EVAL_MODELS):
+    if set(payload) != set(names):
         raise SmokeFailure(f"benchmark models {sorted(payload)}")
     for name, entry in payload.items():
         if (set(entry) != {"per_track", "aggregate"}
@@ -1840,6 +1896,372 @@ def run_serving(profile: bool) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: reference checkpoints, the segment loader, the CLAP audio tower,
+# CLAPSep and the embedding tool
+# ---------------------------------------------------------------------------
+
+CLAP_TOL = 1e-4            # f32 on the card against f32 on the CPU, no TF32
+LOADER_STEPS = 4           # train steps a loader feeds in the A/B
+
+
+def _replace(cfg, **sections):
+    """``cfg`` with some fields of some sections replaced."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **{
+        name: dataclasses.replace(getattr(cfg, name), **fields)
+        for name, fields in sections.items()})
+
+
+def _pt_round_trip(card: str, model, song: np.ndarray, launches3: dict,
+                   root: Path) -> dict:
+    """Export, re-import, serve and train from a reference-style ``.pt``."""
+    import os
+
+    from audio_to_sheet_music_tpu_torch.convert.torch_import import (
+        export_atht_checkpoint)
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+    from audio_to_sheet_music_tpu_torch.models import atht
+    from audio_to_sheet_music_tpu_torch.text.prompts import STEM_PROMPTS
+    from audio_to_sheet_music_tpu_torch.text.tokenizer import write_bpe_vocab
+    from audio_to_sheet_music_tpu_torch.train import trainer
+
+    path = root / "model.pt"
+    t0 = time.perf_counter()
+    export_atht_checkpoint(model, path, epoch=1, metrics={"val_sdr": 0.0})
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = atht.load_params(atht.init(1), path)
+    read_s = time.perf_counter() - t0
+    size_mb = path.stat().st_size / 1e6
+    want = model.state_dict()
+    unequal = [k for k, v in loaded.state_dict().items()
+               if not torch.equal(v, want[k].cpu())]
+    print(f".pt round trip at full width: {size_mb:.1f} MB, write "
+          f"{write_s:.2f} s, read + convert {read_s:.2f} s, "
+          f"{len(want)} tensors, unequal {len(unequal)}, pretrained "
+          f"{loaded.pretrained}")
+    if unequal or not loaded.pretrained:
+        raise SmokeFailure(f"the .pt round trip changed {unequal[:3]}")
+
+    saved_env = os.environ.pop("ATSM_TOKENIZER_DIR", None)
+    try:
+        Separator(loaded, device="cuda")
+    except RuntimeError as e:
+        refused = str(e).split(".")[0]
+    else:
+        raise SmokeFailure("a pretrained Separator took the hash tokenizer")
+    print(f"  pretrained Separator without a vocabulary: refused "
+          f"({refused})")
+    vocab = write_bpe_vocab([p for ps in STEM_PROMPTS.values() for p in ps],
+                            root / "vocab")
+    os.environ["ATSM_TOKENIZER_DIR"] = str(vocab)
+    try:
+        sep = Separator(loaded, device="cuda")
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        pcm, _ = sep.separate_all_pcm(song)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _read_counters().items()
+                    if k in launches3}
+        rate = 4 * SONG_SECONDS / wall
+        print(f"  separate_all_pcm of the 60 s song from the .pt with the BPE "
+              f"tokenizer: {wall:.3f} s, {rate:.2f} audio-sec/sec, launches "
+              f"{launches} (phase 3: {launches3})")
+        if launches != launches3 or np.abs(pcm).max() == 0:
+            raise SmokeFailure("serving from the .pt did not run the "
+                               "kernels as phase 3 did")
+        del sep
+
+        # the model train() converts from resume_from without one, made
+        # here so that its towers can be read after the steps
+        cfg = _replace(_train_config(root), training={"resume_from": str(
+            path)}, wandb={"checkpoint_dir": str(root / "ckpt_pt"),
+                           "output_dir": str(root / "out_pt")})
+        trained = atht.load_params(atht.init(0), path)
+        t0 = time.perf_counter()
+        res = trainer.train(cfg, model=trained, max_steps_per_epoch=2,
+                            device="cuda")
+        train_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("ATSM_TOKENIZER_DIR", None)
+        if saved_env is not None:
+            os.environ["ATSM_TOKENIZER_DIR"] = saved_env
+    changed = [k for k, v in trained.state_dict().items()
+               if not k.startswith("head.") and not torch.equal(
+                   v.cpu(), want[k].cpu())]
+    print(f"  train(resume_from=.pt): 2 steps + validation in {train_s:.2f} s, "
+          f"loss {res['final_loss']:.5f}, val SDR {res['best_sdr']:.3f} dB, "
+          f"pretrained {trained.pretrained}, towers changed {len(changed)}")
+    if (not math.isfinite(res["final_loss"]) or changed
+            or not trained.pretrained or not math.isfinite(res["best_sdr"])):
+        raise SmokeFailure("training from the .pt failed its checks")
+    del trained
+    return {"size_mb": size_mb, "write_s": write_s, "read_s": read_s,
+            "tensors": len(want), "serve_s": wall, "audio_sec_per_sec": rate,
+            "launches": launches, "train_s": train_s,
+            "train_loss": res["final_loss"], "train_val_sdr": res["best_sdr"]}
+
+
+def _loader_ab(model, root: Path) -> dict:
+    """The C++ segment loader against the Python one: build, the epoch
+    through ``train``, batches/s, and the steps/s and device busy share of
+    one traced run of the train steps each feeds."""
+    from audio_to_sheet_music_tpu_torch.data import (BatchLoader,
+                                                     StemSegmentDataset,
+                                                     discover_tracks,
+                                                     native_loader)
+    from audio_to_sheet_music_tpu_torch.text.tokenizer import HashTokenizer
+    from audio_to_sheet_music_tpu_torch.train import step as tstep
+    from audio_to_sheet_music_tpu_torch.train.trainer import put_batch, train
+
+    fresh = not native_loader.library_path().exists()
+    t0 = time.perf_counter()
+    native_loader.load_library()
+    built = time.perf_counter() - t0
+    print(f"segment loader {native_loader.library_path().name}: "
+          + ("g++ build and load" if fresh else "load (built before)")
+          + f" {built:.2f} s")
+    tracks = discover_tracks(root / "train")
+    cfg = _replace(_train_config(root), training={"num_workers": 4},
+                   wandb={"checkpoint_dir": str(root / "ckpt_native"),
+                          "output_dir": str(root / "out_native")})
+    res = train(cfg, model=model, device="cuda")
+    steps = [json.loads(x) for x in (root / "out_native" / "metrics.jsonl"
+                                     ).read_text().splitlines()]
+    losses = [r["train/loss/total"] for r in steps if "train/loss/total" in r]
+    print(f"  train() with num_workers=4: {len(losses)} steps, "
+          f"{res['steps_per_s']:.3f} steps/s over the epoch, losses "
+          f"{[round(x, 4) for x in losses]}")
+    if not losses or not all(map(math.isfinite, losses)):
+        raise SmokeFailure("training on the segment loader failed")
+
+    seg = cfg.data.segment_samples
+    loaders = {
+        "native": lambda: native_loader.NativeBatchLoader(
+            [t.path for t in tracks], seg, TRAIN_B, HashTokenizer(),
+            n_threads=4),
+        "python": lambda: BatchLoader(StemSegmentDataset(tracks, seg),
+                                      TRAIN_B, HashTokenizer())}
+    arrs = [t.load(mmap=False) for t in tracks]
+    first = next(iter(loaders["native"]()))
+    for i in range(TRAIN_B):
+        stem = int(first["stem_index"][i]) + 1
+        if not any(np.array_equal(first["mixture"][i], a[0, :, s:s + seg])
+                   and np.array_equal(first["target"][i], a[stem, :, s:s + seg])
+                   for a in arrs for s in range(0, a.shape[-1] - seg + 1, seg)):
+            raise SmokeFailure(f"native batch item {i} is not a segment of a "
+                               "track")
+    out = {"build_s": built, "built_here": fresh,
+           "train_steps_per_s": res["steps_per_s"], "train_losses": losses}
+    for name, make in loaders.items():
+        loader = make()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in range(2) for _ in loader)
+        bps = n / (time.perf_counter() - t0)
+        state = tstep.TrainState.create(model, lambda p: tstep.make_optimizer(p))
+        step = tstep.make_train_step({}, torch.bfloat16, True)
+
+        def steps_from(loader=loader, step=step, state=state):
+            done = 0
+            while done < LOADER_STEPS:
+                for raw in loader:
+                    step(state, put_batch(raw, torch.device("cuda")))
+                    done += 1
+                    if done == LOADER_STEPS:
+                        break
+            torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        prof = device_busy(steps_from)
+        prof_s = time.perf_counter() - t0
+        sps = LOADER_STEPS / prof["wall_ms"] * 1e3
+        busy = prof["busy_ms"] / prof["wall_ms"]
+        print(f"  {name} loader: {bps:.2f} batches/s ({n} batches of "
+              f"{TRAIN_B} x {CHUNK_SECONDS:.0f} s); {LOADER_STEPS} default "
+              f"train steps it feeds, traced: {sps:.3f} steps/s, device "
+              f"busy {busy:.1%} ({prof['busy_ms']:.1f} of "
+              f"{prof['wall_ms']:.1f} ms; the traced call took "
+              f"{prof_s:.2f} s)")
+        out[name] = {"batches_per_s": bps, "steps_per_s": sps,
+                     "busy_share": busy, "busy_ms": prof["busy_ms"],
+                     "wall_ms": prof["wall_ms"], "profile_s": prof_s}
+    return out
+
+
+def _clap_audio(card: str, text_tower, stems: np.ndarray) -> dict:
+    """The full-width CLAP audio tower on the 4 stems, f32."""
+    from audio_to_sheet_music_tpu_torch.models import clap, clap_audio
+    from audio_to_sheet_music_tpu_torch.ops import mel
+    from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
+    from audio_to_sheet_music_tpu_torch.text.tokenizer import HashTokenizer
+    from audio_to_sheet_music_tpu_torch.utils import audio_io
+
+    audio = clap_audio.ClapAudio(gen=torch.Generator().manual_seed(SEED))
+    model = clap.Clap(text_tower, audio).cuda()
+    mono48 = audio_io.resample(stems.mean(axis=1), SAMPLE_RATE,
+                               mel.SAMPLE_RATE)                  # (4, T)
+    feats = torch.cat([mel.prepare_input_features(m, device="cuda")
+                       for m in mono48])                         # (4,1,1001,64)
+    ids, mask = HashTokenizer()(list(STEM_NAMES))
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    with torch.inference_mode():
+        emb = clap.get_audio_features(model, feats)
+        per_audio, per_text = clap.similarity(model, ids, mask, feats)
+        one = clap_audio.audio_embeds(model.audio, feats[:1]).cpu()
+        ms1 = cuda_ms(lambda: clap_audio.audio_embeds(model.audio, feats[:1]),
+                      5)
+        ms4 = cuda_ms(lambda: clap.get_audio_features(model, feats), 5)
+    with torch.inference_mode():
+        ref = clap_audio.audio_embeds(audio.cpu(), feats[:1].cpu())
+    err = float((one - ref).abs().max())
+    scale = float(ref.abs().max())
+    norms = emb.float().norm(dim=-1)
+    print(f"CLAP audio tower (HTSAT, {sum(p.numel() for p in audio.parameters()) / 1e6:.2f} M, f32) on {card}: "
+          f"get_audio_features of 4 stems {ms4:.2f} ms, audio_embeds of 1 "
+          f"{ms1:.2f} ms; |feature| - 1 max {float((norms - 1).abs().max()):.2e}; "
+          f"logits {tuple(per_audio.shape)} finite "
+          f"{bool(torch.isfinite(per_audio).all())}; card vs CPU max err "
+          f"{err:.3e} (limit {CLAP_TOL:.0e} x {scale:.3e})")
+    if not (torch.isfinite(per_audio).all() and torch.isfinite(per_text).all()
+            and float((norms - 1).abs().max()) <= 1e-5
+            and err <= CLAP_TOL * scale):
+        raise SmokeFailure("the CLAP audio tower failed its checks")
+    return {"ms_1": ms1, "ms_4": ms4, "max_err": err, "ref_max": scale,
+            "logits_per_audio": per_audio.cpu().tolist()}
+
+
+def _clapsep(card: str, song: np.ndarray, root: Path) -> dict:
+    """CLAPSep at full width on the 60 s song, a chunk against the CPU, and
+    ``cli benchmark`` with it."""
+    from audio_to_sheet_music_tpu_torch.eval.models import CLAPSepModel
+    from audio_to_sheet_music_tpu_torch.infer import chunked
+    from audio_to_sheet_music_tpu_torch.models import clapsep
+    from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
+
+    m = CLAPSepModel(device="cuda")
+    n_params = clapsep.param_count(m.model)
+    m.separate(song, "vocals")                                   # warm
+    seg = int(m.chunk_seconds * clapsep.SAMPLE_RATE)
+    n32 = int(math.ceil(song.shape[-1] * clapsep.SAMPLE_RATE / SAMPLE_RATE))
+    chunks = chunked.plan_chunks(n32, seg, int(
+        m.overlap_seconds * clapsep.SAMPLE_RATE), bucket=2).n_chunks
+    walls = {}
+    torch.cuda.reset_peak_memory_stats()
+    for stem in STEM_NAMES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.separate(song, stem)
+        walls[stem] = time.perf_counter() - t0
+        if out.shape != song.shape or not np.isfinite(out).all():
+            raise SmokeFailure(f"CLAPSep {stem}: {out.shape}, finite "
+                               f"{np.isfinite(out).all()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"CLAPSep ({n_params / 1e6:.2f} M, f32) on {card}: 60 s song, "
+          f"{chunks} chunks of 10 s a stem: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; peak device memory {peak:.2f} GiB")
+
+    r = np.random.default_rng(SEED)
+    wav = torch.from_numpy((0.1 * r.standard_normal((1, seg))).astype(
+        np.float32))
+    ep = torch.from_numpy(r.standard_normal((1, 512)).astype(np.float32))
+    en = torch.from_numpy(r.standard_normal((1, 512)).astype(np.float32))
+    with torch.inference_mode():
+        got = clapsep.forward(m.model, wav.cuda(), ep.cuda(), en.cuda()).cpu()
+        ms = cuda_ms(lambda: clapsep.forward(m.model, wav.cuda(), ep.cuda(),
+                                             en.cuda()), 3)
+        ref = clapsep.forward(m.model.cpu(), wav, ep, en)
+    rms = float((got - ref).pow(2).mean().sqrt())
+    ref_rms = float(ref.pow(2).mean().sqrt())
+    print(f"  one 10 s chunk: {ms:.2f} ms on the card; card vs CPU rms err "
+          f"{rms:.3e} (limit {CLAP_TOL:.0e} x rms(ref) {ref_rms:.3e})")
+    if not rms <= CLAP_TOL * ref_rms:
+        raise SmokeFailure("CLAPSep on the card disagrees with the CPU")
+    del m
+    t0 = time.perf_counter()
+    payload = _benchmark_cli(root / "bench_clapsep", "default",
+                             ("ours", "clapsep"),
+                             ("AudioTextHTDemucs (Ours)",
+                              "CLAPSep (random init)"))
+    bench_s = time.perf_counter() - t0
+    agg = {k: v["aggregate"]["sdr"]["average"] for k, v in payload.items()}
+    print(f"  cli benchmark --models ours clapsep ({EVAL_TRACKS} tracks): "
+          f"{bench_s:.2f} s, average SDR {agg}")
+    return {"params_m": n_params / 1e6, "chunks": chunks, "wall_s": walls,
+            "peak_mem_gib": peak, "chunk_ms": ms, "chunk_rms_err": rms,
+            "chunk_ref_rms": ref_rms, "bench_s": bench_s, "bench_sdr": agg}
+
+
+def _embedding_tool(card: str, model) -> dict:
+    """``embed_prompts`` and ``analyze_clustering`` on the card against
+    the CPU (a copy of the text tower), and the Word2Vec leg."""
+    import copy
+    import types
+
+    from audio_to_sheet_music_tpu_torch.apps import embedding_tool as tool
+    from audio_to_sheet_music_tpu_torch.text import word2vec
+
+    prompts, cats = tool.collect_prompts()
+    t0 = time.perf_counter()
+    got = tool.embed_prompts(prompts, model=model, device="cuda")
+    card_s = time.perf_counter() - t0
+    on_cpu = types.SimpleNamespace(clap=copy.deepcopy(model.clap).cpu(),
+                                   pretrained=model.pretrained)
+    ref = tool.embed_prompts(prompts, model=on_cpu, device="cpu")
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    a, b = tool.analyze_clustering(got, cats), tool.analyze_clustering(ref,
+                                                                       cats)
+    w2v = word2vec.load_or_train()
+    w_emb, kept, idx = word2vec.embed_texts(w2v, prompts)
+    w_stats = tool.analyze_clustering(w_emb, [cats[i] for i in idx])
+    diff = max(abs(a[k] - b[k]) for k in a)
+    print(f"embedding tool on {card}: {len(prompts)} prompts in {card_s:.3f} s, "
+          f"card vs CPU max err {err:.3e} (limit {CLAP_TOL:.0e} x "
+          f"{scale:.3e}), clustering diff {diff:.2e}, CLAP separation "
+          f"{a['separation']:.4f}, word2vec ({w2v.backend}, {len(kept)} "
+          f"prompts) separation {w_stats['separation']:.4f}")
+    if not (err <= CLAP_TOL * scale and diff <= CLAP_TOL and len(kept) >= 2):
+        raise SmokeFailure("the embedding tool on the card disagrees with "
+                           "the CPU")
+    return {"max_err": err, "clustering": a, "word2vec": w_stats}
+
+
+def run_checkpoints_towers(card: str, model, stems: np.ndarray,
+                           launches3: dict) -> dict:
+    import tempfile
+
+    from audio_to_sheet_music_tpu_torch.data import synthetic_tracks
+
+    t_phase = time.perf_counter()
+    print(f"phase 7 on {card}")
+    song = _song(np.random.default_rng(SEED))
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p7_") as tmp:
+        root = Path(tmp)
+        synthetic_tracks(4, seconds=12.0, cache_dir=root / "train", seed=SEED)
+        synthetic_tracks(1, seconds=12.0, cache_dir=root / "test",
+                         seed=SEED + 1)
+        parts = (("pt", lambda: _pt_round_trip(card, model, song, launches3,
+                                               root)),
+                 ("loader", lambda: _loader_ab(model, root)),
+                 ("clap_audio", lambda: _clap_audio(card, model.clap, stems)),
+                 ("clapsep", lambda: _clapsep(card, song, root)),
+                 ("embedding", lambda: _embedding_tool(card, model)))
+        for name, run in parts:
+            t0 = time.perf_counter()
+            result[name] = run()
+            result[name]["part_s"] = time.perf_counter() - t0
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 7 in {result['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v['part_s']:.1f} s" for k, v in result.items()
+                      if isinstance(v, dict)))
+    return result
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -1878,10 +2300,11 @@ def main(argv: list) -> int:
                   eval_dconv(gen), eval_attn_block(gen), eval_stft(gen)]
         for k, at_eval in zip(kernels, k_eval):
             k.update(at_eval)
-        path = run_path(profile)
+        path, model, stems = run_path(profile)
         training = run_training(profile)
         evaluation = run_eval(profile)
         serving = run_serving(profile)
+        slice9 = run_checkpoints_towers(card, model, stems, path["launches"])
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
@@ -1901,7 +2324,8 @@ def main(argv: list) -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "compiled": compiled,
          "kernels": kernels, "path": path, "training": training,
-         "eval": evaluation, "serving": serving}, indent=1))
+         "eval": evaluation, "serving": serving,
+         "checkpoints_towers": slice9}, indent=1))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

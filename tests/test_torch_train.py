@@ -317,13 +317,19 @@ class TestTrainer:
         for k, v in model.head.state_dict().items():
             assert torch.equal(v, saved["head"][k])
 
-    def test_more_workers_are_refused(self, env):
+    def test_more_workers_are_refused(self, env, tmp_path, monkeypatch):
+        """``num_workers >= 1`` asks for the C++ segment loader: when it
+        cannot be built, training is refused rather than run on the Python
+        loader."""
+        from audio_to_sheet_music_tpu_torch.data import native_loader
         from audio_to_sheet_music_tpu_torch.train.trainer import train
 
         cfg, _ = env
         cfg2 = dataclasses.replace(cfg, training=dataclasses.replace(
             cfg.training, num_workers=2))
-        with pytest.raises(NotImplementedError, match="num_workers"):
+        monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(native_loader, "COMPILER", "false")
+        with pytest.raises(RuntimeError, match="segment loader"):
             train(cfg2, model=TA.init_tiny(0), device="cpu")
 
 
