@@ -349,7 +349,10 @@ class SeparationService:
         b * per_chunk`` and stores ``pick_stream_block``'s choice; a block
         of the chosen size then runs once too, so the first client finds it
         warm.  Meant for server warm-up (``apps.serve --warmup-seconds``);
-        a server without warm-up serves ``STATIC_STREAM_BLOCK``.
+        a server without warm-up serves ``STATIC_STREAM_BLOCK``.  On a
+        separator with a mesh each candidate rounds up to the mesh's size;
+        when both become one block there is nothing to fit, and this returns
+        ``{"block": STATIC_STREAM_BLOCK, "skipped": "mesh"}``.
         """
         from ..infer import streaming
 
@@ -360,6 +363,9 @@ class SeparationService:
             for b in (b1, b2):
                 stream = streaming.StreamingSeparator(
                     self.separator, stems=("vocals",), block_chunks=b)
+                b = stream.block_chunks     # a mesh rounds it up
+                if b in times:
+                    continue
                 silence = np.zeros((2, stream._span), np.float32)
                 stream.feed(silence)                   # warm
                 stream2 = streaming.StreamingSeparator(
@@ -367,6 +373,9 @@ class SeparationService:
                 t0 = time.perf_counter()
                 stream2.feed(silence)                  # timed
                 times[b] = time.perf_counter() - t0
+        if len(times) < 2:      # the mesh made both candidates one block
+            return {"block": self.STATIC_STREAM_BLOCK, "skipped": "mesh"}
+        b1, b2 = sorted(times)
         per_chunk = max((times[b2] - times[b1]) / (b2 - b1), 1e-4)
         floor = max(times[b1] - b1 * per_chunk, 0.0)
         hop_s = (self.separator.segment - self.separator.overlap) \

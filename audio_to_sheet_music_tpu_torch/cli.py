@@ -2,7 +2,7 @@
 
     python -m audio_to_sheet_music_tpu_torch.cli train --config config.yaml \
         [--device cuda|cpu] [--kernels default|opt_in|none] \
-        [--max-steps-per-epoch N]
+        [--max-steps-per-epoch N] [--data-parallel [--world-size N]]
 
     python -m audio_to_sheet_music_tpu_torch.cli benchmark \
         [--models ours ours-random htdemucs clapsep] [--synthetic \
@@ -14,7 +14,13 @@
 ``train`` is the counterpart of the JAX package's ``cli.train_main``: it
 reads the reference-schema YAML config and runs ``train.trainer.train``
 (whose model comes from ``training.resume_from`` when that is a reference
-``.pt``).  ``benchmark`` is the counterpart of ``cli.benchmark_main``: it
+``.pt``).  ``--data-parallel`` trains data-parallel
+(``train(data_parallel=True)``): one spawned process a visible card (NCCL),
+or ``--world-size`` CPU processes with ``--device cpu`` (gloo), joined
+through a ``file://`` rendezvous in a temporary directory; launched by
+``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` set), each process
+joins torchrun's group instead, on card ``LOCAL_RANK``.  ``benchmark`` is
+the counterpart of ``cli.benchmark_main``: it
 scores each model's SDR and SI-SDR on the test tracks (``--test-dir``,
 else the config's ``data.test_dir``; ``--synthetic`` writes 12 s
 ``data/synth.py`` tracks instead), prints the tables and writes
@@ -33,6 +39,7 @@ apply.  ``ATSM_TINY_MODEL=1`` builds the models at test size.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import tempfile
 from pathlib import Path
@@ -49,16 +56,62 @@ def train_main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--kernels", default="default",
                     choices=["default", "opt_in", "none"])
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="one process a card (or a --world-size of CPU "
+                         "processes), each with its rows of every batch; "
+                         "under torchrun, join its group")
+    ap.add_argument("--world-size", type=int, default=None,
+                    help="processes for --data-parallel (default: every "
+                         "visible card; 1 with --device cpu)")
     args = ap.parse_args(argv)
+    if not args.data_parallel:
+        print(_train(args, args.device, data_parallel=False))
+        return
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        device = ("cpu" if args.device == "cpu"
+                  else f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+        _train_rank(None, None, None, args, device)
+        return
+    import torch
+    import torch.multiprocessing as mp
 
+    cards = torch.cuda.device_count() if args.device == "cuda" else 0
+    world = args.world_size or (cards if args.device == "cuda" else 1)
+    if world < 1 or (args.device == "cuda" and world > cards):
+        raise SystemExit(f"train --data-parallel: {world} processes for "
+                         f"{cards} visible cards")
+    with tempfile.TemporaryDirectory(prefix="atsm_train_dp_") as tmp:
+        mp.spawn(_train_rank, args=(world, f"file://{tmp}/rendezvous", args),
+                 nprocs=world, join=True)
+
+
+def _train(args, device: str, data_parallel: bool) -> dict:
     from .config import Config
     from .train.trainer import train
 
     cfg = (Config.from_yaml(args.config) if Path(args.config).exists()
            else Config())
-    result = train(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
-                   device=args.device, kernels=args.kernels)
-    print(result)
+    return train(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
+                 device=device, kernels=args.kernels,
+                 data_parallel=data_parallel)
+
+
+def _train_rank(rank, world, init_method, args, device=None) -> None:
+    """One data-parallel process: rank ``rank`` of ``world`` through
+    ``init_method`` (spawned), or torchrun's (all three None)."""
+    import torch.distributed as dist
+
+    from .parallel import init_data_parallel
+
+    if device is None:
+        device = "cpu" if args.device == "cpu" else f"cuda:{rank}"
+    rank, _ = init_data_parallel(device, rank, world, init_method)
+    try:
+        result = _train(args, device, data_parallel=True)
+        if rank == 0:
+            print(result)
+    finally:
+        dist.destroy_process_group()
 
 
 def benchmark_main(argv=None) -> None:

@@ -18,7 +18,17 @@ per distinct prompt) and the chunked sweeps:
   copy into pinned memory on a side stream, so it overlaps later groups;
 - ``_stream_block``: one block of ``infer.streaming.StreamingSeparator``:
   ``block_chunks`` chunks through the encoder once and every stem's head,
-  returning the unnormalised overlap-add ``(acc, wsum)`` on the device.
+  returning the unnormalised overlap-add ``(acc, wsum)`` on the device;
+- ``sweep_flops``: the operations of ``separate_all_pcm``'s schedule, the
+  numerator of a tensor-core share.
+
+With a ``mesh`` (``parallel.make_mesh``), every chunk batch above splits
+into ``mesh.size`` equal slices, slice ``i`` through the replica of the
+model on ``mesh.devices[i]`` (``_heads``); the chunk grid pads to a
+multiple of the mesh, the PCM groups round up to it, and the song, the
+overlap-add, the carry and the int16 pass stay on the first device.
+Construction runs the kernel parity gate (``ops.kernel_gate``) on each
+distinct device, once per selection and device in a process.
 
 The JAX package caches one jitted program per chunk geometry; eager
 PyTorch has nothing to cache, so every sweep above goes through the same
@@ -39,13 +49,16 @@ in the same process keep cuDNN's free choice of algorithms.
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 from typing import Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import atht
-from ..ops.select import Kernels, resolve
+from ..ops import kernel_gate
+from ..ops.select import NONE, Kernels, resolve
+from ..parallel import mesh as meshlib
 from ..text.prompts import STEM_NAMES
 from ..text.tokenizer import default_tokenizer
 from . import chunked
@@ -105,22 +118,47 @@ class Separator:
                  segment_seconds: float = chunked.DEFAULT_SEGMENT_SECONDS,
                  overlap_seconds: float = chunked.DEFAULT_OVERLAP_SECONDS,
                  compute_dtype: torch.dtype | None = None,
-                 device: str | torch.device = "cuda", tokenizer=None,
+                 device: str | torch.device | None = None, tokenizer=None,
                  normalize_text: bool = False,
                  sample_rate: int = SAMPLE_RATE,
-                 kernels: Kernels = True, deterministic: bool = False):
+                 kernels: Kernels = True, deterministic: bool = False,
+                 mesh: meshlib.Mesh | None = None):
         """``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the
-        host.  ``compute_dtype`` defaults to bf16 on the card and f32 on the
-        CPU.  A model marked ``pretrained`` (``atht.load_params`` of a
-        ``.pt`` marks it) makes the tokenizer refuse the hash fallback,
-        which is meaningless for a pretrained text tower.
+        host.  With a ``mesh`` the device is the mesh's first (``device``,
+        if given, must name it) and the model is replicated on each
+        distinct device of the mesh.  ``compute_dtype`` defaults to bf16 on
+        the card and f32 on the CPU.  A model marked ``pretrained``
+        (``atht.load_params`` of a ``.pt`` marks it) makes the tokenizer
+        refuse the hash fallback, which is meaningless for a pretrained
+        text tower.
         ``kernels`` picks the hand-written kernels (``ops.select``: the
         default selection, ``"opt_in"``, or ``False`` for the encoder layer
         by layer in PyTorch ops, the yardstick the kernels are timed
         against).  ``deterministic=True`` runs every chunk program under
-        ``cudnn_deterministic``, so two calls give the same bytes."""
-        self.device = open_device(device, "Separator")
-        self.model = model.to(self.device)
+        ``cudnn_deterministic``, so two calls give the same bytes.  The
+        kernel parity gate runs on each device before any sweep and raises
+        ``kernel_gate.KernelParityError`` if the selection diverges."""
+        if mesh is not None:
+            if device is not None and meshlib.make_mesh(
+                    [device]).devices[0] != mesh.devices[0]:
+                raise ValueError(f"Separator: device {device} is not the "
+                                 f"mesh's first device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.device = open_device("cuda" if device is None else device,
+                                  "Separator")
+        self.mesh = mesh
+        # the devices _heads splits a chunk batch over
+        self._slices = mesh or meshlib.Mesh((self.device,))
+        if mesh is None:
+            self._replicas = {self.device: model.to(self.device)}
+            self.bucket = "auto"
+        else:
+            for d in mesh.distinct():
+                open_device(d, "Separator")
+            self._replicas = meshlib.replicate(model, mesh)
+            # the chunk axis splits into equal slices
+            self.bucket = meshlib.pad_to_multiple(8, mesh.size)
+        self.model = self._replicas[self.device]
         self.sample_rate = sample_rate
         self.segment = int(segment_seconds * sample_rate)
         self.overlap = int(overlap_seconds * sample_rate)
@@ -132,10 +170,12 @@ class Separator:
         self.pretrained = model.pretrained
         self.tokenizer = tokenizer or default_tokenizer(
             require_real=model.pretrained)
-        self.bucket = "auto"
         self.kernels = resolve(kernels)
         self.deterministic = deterministic
         self._emb_cache: Dict[str, torch.Tensor] = {}
+        for replica in self._replicas.values():
+            kernel_gate.ensure_layer_parity(replica, self.compute_dtype,
+                                            kernels=self.kernels)
 
     # -- text ---------------------------------------------------------------
 
@@ -155,15 +195,33 @@ class Separator:
 
     # -- chunk programs -------------------------------------------------------
 
-    def _heads(self, chunks: torch.Tensor, embs: torch.Tensor) -> torch.Tensor:
-        """(n, 2, seg) chunks -> (n, S*2, seg): encoder once, all stems."""
+    def _heads(self, chunks: torch.Tensor, embs: torch.Tensor,
+               kernels: Kernels | None = None) -> torch.Tensor:
+        """(n, 2, seg) chunks -> (n, S*2, seg) on the first device: encoder
+        once, all stems (``kernels`` replaces the separator's selection).
+
+        On a mesh, slice ``i`` of the chunk axis goes to
+        ``mesh.devices[i]`` and through its replica, and its stems come back
+        to the first device, both by non-blocking copies.  Nothing between
+        the launches waits for a card (no ``.item()``, host copy or
+        synchronise; ``ops.dsp.istft`` skips ``torch.istft``'s host-side
+        check), so on distinct cards the replicas run at once."""
+        sel = self.kernels if kernels is None else kernels
+        devices = self._slices.devices
         with cudnn_deterministic(self.deterministic):
-            enc = atht.encode_mixture(self.model, chunks, self.compute_dtype,
-                                      self.kernels)
-            # (S, n, 2, L)
-            stacked = atht.apply_head_multi(self.model, enc, embs)
-        s_, b_, c_, l_ = stacked.shape
-        return stacked.permute(1, 0, 2, 3).reshape(b_, s_ * c_, l_)
+            encs = [atht.encode_mixture(self._replicas[dev], piece,
+                                        self.compute_dtype, sel)
+                    for dev, piece in zip(
+                        devices, meshlib.shard_batch(chunks, self._slices))]
+            outs = []
+            for dev, enc in zip(devices, encs):
+                # (S, k, 2, L)
+                stacked = atht.apply_head_multi(
+                    self._replicas[dev], enc, embs.to(dev, non_blocking=True))
+                s_, b_, c_, l_ = stacked.shape
+                outs.append(stacked.permute(1, 0, 2, 3).reshape(
+                    b_, s_ * c_, l_).to(self.device, non_blocking=True))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _upload(self, mixture: np.ndarray) -> torch.Tensor:
         song = np.ascontiguousarray(mixture)
@@ -242,10 +300,14 @@ class Separator:
     def _group_schedule(self, grid: chunked.ChunkGrid,
                         group_chunks: int) -> List[int]:
         """Group sizes for the pipelined PCM sweep: a half-size first group
-        (shorter pipeline fill), then full groups covering the grid."""
+        (shorter pipeline fill), then full groups covering the grid.  On a
+        mesh the group is the split chunk axis: it rounds up to a multiple
+        of the mesh's size, with no half-size first group."""
         g = max(1, min(group_chunks, grid.n_chunks))
+        if self.mesh is not None:
+            g = meshlib.pad_to_multiple(g, self.mesh.size)
         schedule = []
-        if grid.n_chunks > g and g >= 2:
+        if self.mesh is None and grid.n_chunks > g and g >= 2:
             schedule.append(g // 2)
         left = grid.n_chunks - sum(schedule)
         schedule += [g] * max(0, -(-left // g))
@@ -253,7 +315,8 @@ class Separator:
 
     @torch.inference_mode()
     def _group(self, song: torch.Tensor, embs: torch.Tensor, g: int, hop: int,
-               start: int, length: int, scale: float, carry_acc, carry_w
+               start: int, length: int, scale: float, carry_acc, carry_w,
+               kernels: Kernels | None = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One group: ``song (2, span)`` -> (pcm int16 (S*2, g*hop),
         carry_acc', carry_w').  Chunks whose global start is at or past
@@ -262,7 +325,7 @@ class Separator:
         grid = chunked.ChunkGrid(segment=seg, hop=hop, n_chunks=g,
                                  length=(g - 1) * hop + seg)
         flat = self._heads(chunked.frame_song(_to_float_song(song), grid,
-                                              padded=True), embs)
+                                              padded=True), embs, kernels)
         valid = (start + torch.arange(g, device=self.device) * hop) < length
         acc, wsum = chunked.overlap_add_weighted(flat, grid, self.overlap,
                                                  valid, normalize=False)
@@ -340,3 +403,38 @@ class Separator:
             pcm[:, s0:s0 + take] = host.numpy()[:, :take]
         return pcm.reshape(n_stems, 2, length), np.full((n_stems,), scale,
                                                         np.float32)
+
+    @torch.inference_mode()
+    def sweep_flops(self, length: int, n_stems: int = len(STEM_NAMES),
+                    group_chunks: int = 4) -> float:
+        """Floating-point operations of ``separate_all_pcm``'s schedule for
+        a ``length``-sample song: the sum over the group programs it
+        dispatches, as ``torch.utils.flop_counter.FlopCounterMode`` counts
+        them (matrix products, convolutions, attention;
+        ``utils.profiling.flops_estimate``), on the per-op path: the
+        kernels compute the same function, but the counter cannot see a
+        ctypes launch.  Each group size runs once, on silence, and counts
+        for every group of that size.  The numerator of a tensor-core share
+        (``utils.profiling.peak_tflops``)."""
+        from ..utils import profiling
+
+        grid = chunked.plan_chunks(length, self.segment, self.overlap,
+                                   self.bucket)
+        hop, seg = grid.hop, grid.segment
+        sizes: Counter = Counter()
+        start = 0
+        for g in self._group_schedule(grid, group_chunks):
+            if length - start <= 0:
+                break
+            sizes[g] += 1
+            start += g * hop
+        embs = torch.zeros((n_stems, atht.TEXT_DIM), device=self.device)
+        carry_acc = torch.zeros((n_stems * 2, seg - hop), device=self.device)
+        carry_w = torch.zeros((seg - hop,), device=self.device)
+        total = 0.0
+        for g, count in sizes.items():
+            song = torch.zeros((2, (g - 1) * hop + seg), device=self.device)
+            total += count * profiling.flops_estimate(
+                self._group, song, embs, g, hop, 0, length, 1.0, carry_acc,
+                carry_w, NONE)
+        return total

@@ -24,6 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh as meshlib
 from ..text.prompts import STEM_NAMES
 
 
@@ -37,14 +38,17 @@ class StreamingSeparator:
             play(piece)
         tail = stream.flush()
 
-    The JAX stream rounds ``block_chunks`` up to a multiple of its mesh's
-    device count; the port runs on one card and has no such rounding.
+    On a separator with a mesh, ``block_chunks`` rounds up to a multiple of
+    the mesh's size: the block's chunk axis splits over it.
     """
 
     def __init__(self, separator, stems: Sequence[str] = STEM_NAMES,
                  block_chunks: int = 8):
         self.sep = separator
         self.stems = list(stems)
+        if separator.mesh is not None:
+            block_chunks = meshlib.pad_to_multiple(block_chunks,
+                                                   separator.mesh.size)
         self.block_chunks = block_chunks
         self.segment = separator.segment
         # the plan_chunks clamp: overlap >= segment would make hop <= 0 and

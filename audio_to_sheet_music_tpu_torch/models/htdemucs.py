@@ -353,11 +353,20 @@ def _attn_residual(layer: TransformerLayer, x_res: torch.Tensor,
                                  channel_last=True)
 
 
+def _takes_layer_tail(layer: TransformerLayer, sel: KernelSelection,
+                      dim: int, heads: int) -> bool:
+    """The ``layer`` selection routes a layer to ``layer_tail`` where the
+    kernel takes its widths (the JAX ``_use_pallas_layer`` test, with the
+    port's kernel's ``supports``); other widths run per op."""
+    return sel.layer and fused_attn.supports(dim, heads,
+                                             layer.linear1.weight.shape[0])
+
+
 def _self_layer_apply(layer: TransformerLayer, x: torch.Tensor,
                       kernels: Kernels) -> torch.Tensor:
     sel = resolve(kernels)
     heads = _n_heads(x.shape[-1])
-    if sel.layer:
+    if _takes_layer_tail(layer, sel, x.shape[-1], heads):
         y = fused_attn.fused_self_layer(layer, x, heads)
         return _group_norm_tokens(layer.norm_out, y)
     h = L.layer_norm(layer.norm1, x)
@@ -371,7 +380,7 @@ def _cross_layer_apply(layer: TransformerLayer, q: torch.Tensor,
                        mem: torch.Tensor, kernels: Kernels) -> torch.Tensor:
     sel = resolve(kernels)
     heads = _n_heads(q.shape[-1])
-    if sel.layer:
+    if _takes_layer_tail(layer, sel, q.shape[-1], heads):
         y = fused_attn.fused_cross_layer(layer, q, mem, heads)
         return _group_norm_tokens(layer.norm_out, y)
     qn = L.layer_norm(layer.norm1, q)

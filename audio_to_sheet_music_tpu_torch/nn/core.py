@@ -16,6 +16,7 @@ the storage uninitialised, for modules that are about to be loaded.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -182,17 +183,24 @@ def embedding(m: Embedding, idx: torch.Tensor) -> torch.Tensor:
     return m.weight[idx]
 
 
-def _lerp_src(in_size: int, size: int):
+@functools.lru_cache(maxsize=64)
+def _lerp_src(in_size: int, size: int, device: torch.device):
     """Source taps of torch's ``align_corners=False`` linear resize, with the
     positions computed in float64 as the JAX package does (``F.interpolate``
     computes them in float32, which moves a 11028 -> 11025 resize by up to
-    ~1e-3 of a sample near the end)."""
+    ~1e-3 of a sample near the end): ``(i0, i1, frac)`` on ``device``.
+    Kept per geometry and device: copying host arrays to the card on every
+    call would wait for the card each time (a pageable host-to-device copy
+    synchronises), which would serialise the replicas of a mesh sweep.
+    Made outside inference mode, so a training step can use the taps that
+    a sweep made."""
     src = (np.arange(size) + 0.5) * (in_size / size) - 0.5
     i0f = np.floor(src)
     frac = (src - i0f).astype(np.float32)
     i0 = np.clip(i0f.astype(np.int64), 0, in_size - 1)
     i1 = np.clip(i0f.astype(np.int64) + 1, 0, in_size - 1)
-    return i0, i1, frac
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in (i0, i1, frac))
 
 
 def _resize_axis(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
@@ -200,12 +208,12 @@ def _resize_axis(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
     in_size = x.shape[dim]
     if in_size == size:
         return x
-    i0, i1, frac = _lerp_src(in_size, size)
+    i0, i1, frac = _lerp_src(in_size, size, x.device)
     shape = [1] * x.ndim
     shape[dim] = size
-    f = torch.from_numpy(frac).to(x.device).reshape(shape)
-    x0 = x.index_select(dim, torch.from_numpy(i0).to(x.device)).float()
-    x1 = x.index_select(dim, torch.from_numpy(i1).to(x.device)).float()
+    f = frac.reshape(shape)
+    x0 = x.index_select(dim, i0).float()
+    x1 = x.index_select(dim, i1).float()
     return (x0 * (1.0 - f) + x1 * f).to(x.dtype)
 
 

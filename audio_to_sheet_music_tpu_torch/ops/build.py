@@ -124,6 +124,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def launch(what: str, device: torch.device, fn, *args) -> None:
+    """Call the ctypes launcher ``fn(*args)`` with ``device`` (the input's
+    card) as the CUDA runtime's current device, then ``check`` its error
+    code.  The libraries read the current device: ``cudaFuncSetAttribute``
+    (the flash launch and the GEMM in ``attn_common.cuh``, the STFT) applies
+    to it, ``henc_freq`` sizes its resident grid from ``cudaGetDevice``, and
+    every ``<<<>>>`` launch runs on it, so without this a tensor on
+    ``cuda:1`` would be launched on whichever card is current."""
+    with torch.cuda.device(device):
+        err = fn(*args)
+    check(err, what)
+
+
 def check_no_grad(what: str, *tensors) -> None:
     """Raise if autograd would record through a kernel: no kernel has a
     backward (none of the JAX package's Pallas kernels has one either)."""

@@ -77,12 +77,36 @@ def stft(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,
 
 def istft(z: torch.Tensor, length: int, n_fft: int = 4096,
           hop: int = 1024) -> torch.Tensor:
-    """Inverse of ``stft``: complex ``(..., F, frames)`` -> ``(..., length)``."""
+    """Inverse of ``stft``: complex ``(..., F, frames)`` -> ``(..., length)``.
+
+    ``torch.istft(center=True, normalized=True, length=length)`` written
+    out in its own steps (an orthonormal inverse real FFT a frame, the
+    Hann window, overlap-add by ``fold``, the centre trimmed, division by
+    the squared window's overlap-add), without its check that the
+    envelope is nowhere near zero: that check reads a value back to the
+    host, so the host would wait for the card in every head, one replica
+    after another on a mesh.  The periodic Hann window at ``hop <=
+    n_fft / 2`` overlaps itself everywhere inside the trimmed span."""
     lead = z.shape[:-2]
-    x = torch.istft(z.reshape(-1, *z.shape[-2:]), n_fft, hop,
-                    window=_window(n_fft, z.device), win_length=n_fft,
-                    center=True, normalized=True, length=length)
-    return x.reshape(*lead, x.shape[-1])
+    zz = z.reshape(-1, *z.shape[-2:]).transpose(1, 2)    # (B, frames, F)
+    n_frames = zz.shape[1]
+    win = _window(n_fft, z.device)
+    frames = torch.fft.irfft(zz, n=n_fft, dim=-1, norm="ortho")
+    total = n_fft + hop * (n_frames - 1)
+
+    def overlap_add(cols: torch.Tensor) -> torch.Tensor:
+        # (B, frames, n_fft) -> (B, total): the adjoint of unfold
+        return torch.ops.aten.unfold_backward(cols, [cols.shape[0], total],
+                                              1, n_fft, hop)
+
+    y = overlap_add(frames * win)
+    env = overlap_add((win * win).expand(1, n_frames, n_fft))
+    start = n_fft // 2
+    end = min(start + length, total)
+    x = y[:, start:end] / env[:, start:end]
+    if end < start + length:
+        x = F.pad(x, (0, start + length - end))
+    return x.reshape(*lead, length)
 
 
 def spec(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,

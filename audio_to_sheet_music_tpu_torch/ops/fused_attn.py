@@ -182,11 +182,11 @@ def layer_tail(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2, b2, g2,
     u = torch.empty((bsz, l, ff), dtype=bf, device=dev)
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().layer_tail_launch(
+    build.launch(
+        "layer_tail", dev, _lib().layer_tail_launch,
         *(t.data_ptr() for t in (h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb,
                                  w1, b1, w2, b2, g2, qa, qb, y1, u, out)),
         bsz, l, s, d, ff, 1.0 / math.sqrt(d // num_heads), EPS, stream)
-    build.check(err, "layer_tail")
     layer_tail.launches += 1
     return out
 
@@ -232,11 +232,11 @@ def attn_block(q, k, v, x, wo, bo, gamma, num_heads: int) -> torch.Tensor:
         _check(name, t, dt, shape, dev, "attn_block")
     a = torch.empty_like(q)
     out = torch.empty_like(q)
-    err = _block_lib().attn_block_launch(
+    build.launch(
+        "attn_block", dev, _block_lib().attn_block_launch,
         *(t.data_ptr() for t in (q, k, v, x, wo, bo, gamma, a, out)),
         bsz, l, s, d, 1.0 / math.sqrt(d // num_heads),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "attn_block")
     attn_block.launches += 1
     return out
 

@@ -166,11 +166,11 @@ def dconv_rows(dconv, x: torch.Tensor) -> torch.Tensor:
     part = torch.empty((lib.dconv_rows_part_floats(r, t),),
                        dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
-    err = lib.dconv_rows_launch(
+    build.launch(
+        "dconv_rows", dev, lib.dconv_rows_launch,
         x.data_ptr(), ctypes.cast(dw_ptrs, ctypes.c_void_p), mid.data_ptr(),
         u.data_ptr(), part.data_ptr(), out.data_ptr(), r, c, t,
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "dconv_rows")
     dconv_rows.launches += 1
     return out
 

@@ -174,11 +174,11 @@ def henc_freq_fused(layer, x: torch.Tensor) -> torch.Tensor:
                        dtype=torch.float32, device=dev)
     out = torch.empty((b, c, f // STRIDE, t), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.henc_freq_launch(
+    build.launch(
+        "henc_freq_fused", dev, lib.henc_freq_launch,
         x.data_ptr(), *(w.data_ptr() for w in weights),
         ctypes.cast(dw_ptrs, ctypes.c_void_p), y.data_ptr(), u.data_ptr(),
         part.data_ptr(), out.data_ptr(), b, cin, f, t, c, stream)
-    build.check(err, "henc_freq_fused")
     henc_freq_fused.launches += 1
     return out
 

@@ -161,11 +161,11 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, n_frames: int
     ptrs = [base + 8 * off for off in table_offsets(n_fft)]
     win, split, tw1 = ptrs[:3]
     tw2 = ptrs[3] if len(ptrs) > 3 else None      # two passes: unused
-    err = _lib().stft_launch(
+    build.launch(
+        "stft", x.device, _lib().stft_launch,
         x.data_ptr(), out.data_ptr(), win, split, tw1, tw2, rows, t, n_fft,
         hop, n_frames, packed_schedule(n_fft),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "stft")
     stft.launches += 1
     return out
 

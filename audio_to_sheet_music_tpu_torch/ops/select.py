@@ -8,7 +8,7 @@ reads no environment: every entry point takes a ``kernels`` argument that
 
 - ``True`` or ``"default"``: ``layer`` + ``enc``, the JAX TPU default
   (every crosstransformer layer through ``layer_tail``, freq encoder layer 0
-  through ``henc_freq_fused``).
+  through ``henc_freq_fused``, each where the kernel takes the widths).
 - ``"opt_in"``: ``enc`` + ``dconv`` + ``attn`` + ``stft`` with ``layer``
   off: ``ATSM_PALLAS_LAYER=0 ATSM_PALLAS_ATTN=1 ATSM_PALLAS_DCONV=1
   ATSM_PALLAS_STFT=1`` in the JAX package.
@@ -22,7 +22,7 @@ freq DConv of the other layers; ``dconv`` never takes the time branch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Dict, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +56,35 @@ def resolve(kernels: Kernels) -> KernelSelection:
     raise ValueError(f"unknown kernel selection {kernels!r}: expected a "
                      f"KernelSelection, a bool, None or one of "
                      f"{sorted(PRESETS)}")
+
+
+def name(sel: KernelSelection) -> str:
+    """The preset's name for ``sel`` (``"default"``, ``"opt_in"``,
+    ``"none"``), else the flags that are on, joined by ``+``."""
+    for key, preset in PRESETS.items():
+        if sel == preset:
+            return key
+    return "+".join(f.name for f in dataclasses.fields(sel)
+                    if getattr(sel, f.name))
+
+
+def _wrappers() -> Dict[str, object]:
+    """Each kernel's wrapper, by kernel name; each counts its launches in
+    its ``launches`` attribute."""
+    from . import fused_attn, fused_dconv, fused_enc, fused_stft
+
+    return {"layer_tail": fused_attn.layer_tail,
+            "henc_freq_fused": fused_enc.henc_freq_fused,
+            "dconv_rows": fused_dconv.dconv_rows,
+            "attn_block": fused_attn.attn_block, "stft": fused_stft.stft}
+
+
+def launch_counts() -> Dict[str, int]:
+    """The five kernels' launch counters in this process, by name."""
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    for fn in _wrappers().values():
+        fn.launches = 0

@@ -19,6 +19,12 @@
   eps 1e-8 outside the square root (as ``torch.optim.AdamW``), and a
   parameter the loss does not reach gets a zero gradient (and so still
   decays), as optax does.
+- Data parallel (``data_parallel=True``): each process holds its own rows
+  of the global batch; after ``backward`` one all-reduce averages the
+  head's gradients (``parallel.mesh.allreduce_mean_``), and another the
+  loss metrics, before the clip.  With equal rows a process, the step then
+  equals the single-device step on the global batch, as the JAX package's
+  inserted psum makes it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from ..models import atht
 from ..ops import losses
 from ..ops.select import Kernels
+from ..parallel.mesh import allreduce_mean_
 
 Batch = Mapping[str, torch.Tensor]   # mixture (B,2,T), target (B,2,T),
                                      # input_ids (B,L), attention_mask (B,L)
@@ -152,11 +159,14 @@ def _loss(model, batch: Batch, loss_cfg: Mapping[str, Any], compute_dtype,
 
 def make_train_step(loss_cfg: Mapping[str, Any] | None = None,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    kernels: Kernels = True
+                    kernels: Kernels = True, data_parallel: bool = False
                     ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """``train_step(state, batch) -> metrics``: one forward, backward through
     the head, clip and AdamW; updates ``state`` in place.  The metrics are
-    detached 0-d tensors on the device, ``grad_norm`` among them."""
+    detached 0-d tensors on the device, ``grad_norm`` among them.  With
+    ``data_parallel`` (a process group joined by
+    ``parallel.init_data_parallel``), ``batch`` is this process's rows and
+    the gradients and metrics are averaged over the group."""
     loss_cfg = dict(loss_cfg or {})
 
     def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -164,6 +174,16 @@ def make_train_step(loss_cfg: Mapping[str, Any] | None = None,
                               kernels)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_parallel:
+            params = state.optimizer.params
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            allreduce_mean_([p.grad for p in params])
+            names = list(metrics)
+            avg = torch.stack([metrics[k].float() for k in names])
+            allreduce_mean_([avg])
+            metrics = dict(zip(names, avg.unbind()))
         metrics["grad_norm"] = state.optimizer.step()
         state.step += 1
         return metrics

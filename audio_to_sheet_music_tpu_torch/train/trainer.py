@@ -16,7 +16,15 @@ The kernel selection (``ops.select``) is the caller's: the default runs
 ``dconv_rows``, ``attn_block`` and the STFT kernel.  All of them sit in the
 frozen encoder, which runs without autograd.
 
-Not here yet: the data-parallel mesh argument.
+``data_parallel=True`` trains in a process group that the caller joined
+(``parallel.init_data_parallel``; ``cli train --data-parallel`` spawns one
+process a card, or joins ``torchrun``'s group).  Every rank builds the same
+loaders from the same seed and the same model, takes its rows ``[r*b/n,
+(r+1)*b/n)`` of each global batch, and averages the head's gradients and
+the loss over the group in each step (``make_train_step``); validation
+gathers every rank's per-item SDRs, so ``val/sdr`` is the single-device
+value.  Rank 0 alone logs, prints and writes checkpoints; the others wait
+for it at a barrier after each epoch's checkpoint.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data import BatchLoader, StemSegmentDataset, discover_tracks
@@ -87,6 +96,18 @@ class MetricLogger:
         self._jsonl.close()
 
 
+class _NoLogger:
+    """The logger of a data-parallel rank other than 0: logs nothing."""
+
+    media_active = False
+
+    def log(self, metrics, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def _subset(dataset: StemSegmentDataset, pct: float, seed: int = 0):
     """Random percentage subset (reference `src/train.py:444-452`)."""
     if pct >= 1.0:
@@ -101,10 +122,11 @@ def _subset(dataset: StemSegmentDataset, pct: float, seed: int = 0):
 def _default_model(cfg: Config) -> atht.AudioTextHTDemucs:
     """A reference ``.pt`` in ``training.resume_from``, converted (the model
     is then ``pretrained``), else the seeded init with the committed
-    trained head."""
+    trained head; at test size under ``ATSM_TINY_MODEL=1``
+    (``atht.load_from_env``)."""
     resume = cfg.training.resume_from
     pt = resume if resume and Path(resume).suffix == ".pt" else None
-    return atht.load_params(atht.init(0), pt)
+    return atht.load_from_env(pt)
 
 
 def _train_loader(cfg: Config, tracks, tokenizer):
@@ -149,8 +171,8 @@ def _log_media(logger: MetricLogger, model, batch, raw, step: int,
 
 def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
           max_steps_per_epoch: int | None = None,
-          device: str | torch.device = "cuda", kernels: Kernels = True
-          ) -> Dict[str, float]:
+          device: str | torch.device = "cuda", kernels: Kernels = True,
+          data_parallel: bool = False) -> Dict[str, float]:
     """Run training; returns ``{"best_sdr", "final_epoch", "final_loss",
     "steps_per_s"}``.
 
@@ -159,12 +181,32 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     committed trained head.  A model marked ``pretrained`` (converted real
     weights: ``atht.load_params`` of a ``.pt`` marks it) makes the tokenizer
     refuse the hash fallback.  ``device`` defaults to ``cuda``.
+    ``data_parallel=True`` needs a joined process group and a batch size
+    that splits evenly over it (see the module notes).
     """
     device = open_device(device, "train")
+    rank, world = 0, 1
+    if data_parallel:
+        if not dist.is_initialized():
+            raise RuntimeError("train(data_parallel=True): no process group; "
+                               "join one with parallel.init_data_parallel")
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if cfg.training.batch_size % world:
+            raise ValueError(f"train: batch_size {cfg.training.batch_size} "
+                             f"does not split over {world} ranks")
+    main = rank == 0
+    say = print if main else (lambda *a, **k: None)
+    lo = rank * cfg.training.batch_size // world
+    hi = (rank + 1) * cfg.training.batch_size // world
+
+    def rows(raw: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's rows of a global host batch."""
+        return {k: v[lo:hi] for k, v in raw.items()}
+
     compute_dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
                      else torch.float32)
     out_dir = Path(cfg.wandb.output_dir)
-    logger = MetricLogger(cfg, out_dir)
+    logger = MetricLogger(cfg, out_dir) if main else _NoLogger()
     if model is None:
         model = _default_model(cfg)
     model = model.to(device)
@@ -173,7 +215,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     train_tracks = discover_tracks(cfg.data.train_dir)
     val_tracks = discover_tracks(cfg.data.test_dir)
     if not val_tracks:
-        print(f"WARNING: no validation tracks found under "
+        say(f"WARNING: no validation tracks found under "
               f"{cfg.data.test_dir!r}; validating on TRAINING tracks — "
               "val/sdr and best-checkpoint selection are unreliable",
               flush=True)
@@ -185,7 +227,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     val_loader = BatchLoader(val_ds, cfg.training.batch_size, tokenizer,
                              shuffle=False)
     if len(val_loader) == 0:
-        print(f"WARNING: validation set ({len(val_ds)} samples) is smaller "
+        say(f"WARNING: validation set ({len(val_ds)} samples) is smaller "
               f"than batch_size={cfg.training.batch_size}; no val batches "
               "will run and no 'best' checkpoint will be selected", flush=True)
 
@@ -202,7 +244,8 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     state = TrainState.create(model, lambda params: make_optimizer(
         params, opt_cfg.lr, opt_cfg.weight_decay, opt_cfg.grad_clip,
         total_steps))
-    train_step = make_train_step(loss_cfg, compute_dtype, kernels)
+    train_step = make_train_step(loss_cfg, compute_dtype, kernels,
+                                 data_parallel)
     eval_step = make_eval_step(loss_cfg, compute_dtype, kernels)
 
     ckpt_dir = Path(cfg.wandb.checkpoint_dir)
@@ -220,7 +263,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
         state, epoch, metrics = ckpt.load_checkpoint(latest, state)
         start_epoch = epoch + 1
         best_sdr = metrics.get("best_sdr", -np.inf)
-        print(f"resumed from {latest} at epoch {start_epoch}")
+        say(f"resumed from {latest} at epoch {start_epoch}")
 
     mean_loss, rate = float("nan"), float("nan")
     for epoch in range(start_epoch, cfg.training.num_epochs):
@@ -230,6 +273,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
         for i, raw in enumerate(train_loader):
             if i >= steps_per_epoch:
                 break
+            raw = rows(raw)
             batch = put_batch(raw, device)
             metrics = train_step(state, batch)
             if state.step % cfg.wandb.log_every == 0:
@@ -242,15 +286,20 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
             n_steps += 1
         mean_loss = float(loss_sum) / n_steps if n_steps else float("nan")
         rate = n_steps / max(time.perf_counter() - t0, 1e-9)
-        print(f"epoch {epoch}: loss {mean_loss:.4f} ({rate:.2f} steps/s)")
+        say(f"epoch {epoch}: loss {mean_loss:.4f} ({rate:.2f} steps/s)")
 
         val_sdr = float("nan")
         if (epoch + 1) % cfg.wandb.validate_every == 0:
             per_stem = {s: [] for s in STEM_NAMES}
             agg = []
             for raw in val_loader:
-                _, per_item = eval_step(state.model, put_batch(raw, device))
+                _, per_item = eval_step(state.model,
+                                        put_batch(rows(raw), device))
                 per_item = per_item.float().cpu().numpy()
+                if data_parallel:
+                    parts = [None] * world
+                    dist.all_gather_object(parts, per_item)
+                    per_item = np.concatenate(parts)
                 agg.append(per_item.mean())
                 for j, si in enumerate(raw["stem_index"]):
                     per_stem[STEM_NAMES[int(si)]].append(float(per_item[j]))
@@ -260,15 +309,18 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
                 log.update({f"val/sdr_{s}": float(np.mean(v))
                             for s, v in per_stem.items() if v})
                 logger.log(log, state.step)
-                print(f"  val SDR {val_sdr:.2f} dB")
+                say(f"  val SDR {val_sdr:.2f} dB")
 
         is_best = bool(np.isfinite(val_sdr) and val_sdr > best_sdr)
         if is_best:
             best_sdr = val_sdr
-        ckpt.save_checkpoint(ckpt_dir, state, epoch,
-                             {"loss": mean_loss, "val_sdr": val_sdr,
-                              "best_sdr": best_sdr},
-                             is_best=is_best, every=cfg.wandb.save_every)
+        if main:
+            ckpt.save_checkpoint(ckpt_dir, state, epoch,
+                                 {"loss": mean_loss, "val_sdr": val_sdr,
+                                  "best_sdr": best_sdr},
+                                 is_best=is_best, every=cfg.wandb.save_every)
+        if data_parallel:
+            dist.barrier()
     logger.close()
     return {"best_sdr": float(best_sdr),
             "final_epoch": cfg.training.num_epochs - 1,

@@ -123,6 +123,27 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    ``analyze_clustering`` on the card against the CPU within 1e-4, and its
    Word2Vec leg.
 
+8. The kernel gate and several devices (after phase 7; numbers under
+   ``parallel_gate``): the gate's result from phase 3's ``Separator`` (rms
+   below 1e-3), the gate at the opt-in selection, and a pair whose kernel
+   pass is off by 1e-2, which must raise ``KernelParityError``.  Then
+   ``separate_all_pcm`` of the 60 s song, 4 stems, on ``make_mesh()``
+   (every visible card) and on two replicas of ``cuda:0`` (each group
+   split in two), warm, then timed with the launch counters set to 0 just
+   before and read just after (``layer_tail`` and ``henc_freq_fused`` must
+   run): the int16 difference from phase 3's PCM, the rms against
+   ``separate_all`` (below 1e-3), the wall, the rate and the schedule; the
+   places where the host waits for the card inside one group's
+   ``_heads`` on the 2-replica mesh (``torch.cuda.set_sync_debug_mode``);
+   a ``StreamingSeparator`` on that mesh at ``block_chunks=3`` (rounded
+   to 4) within 1e-3 rms of ``separate``.  Then ``cli train
+   --data-parallel`` (one NCCL process a card; 2 steps of 8 x 6 s and the
+   validation batch on phase 4's synthetic tracks: finite losses, rank 0's
+   checkpoint) beside one opt-in train step of 8 x 6 s over 2 gloo ranks
+   that share ``cuda:0``, against the single-device step: head and loss
+   within 1e-3.  Last, ``Separator.sweep_flops`` of the song and the
+   tensor-core share it gives phase 3's wall.
+
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
 flash, out-projection GEMM, LayerNorm, FF1, FF2, each with its rate and
@@ -185,6 +206,7 @@ MEMORY_BYTES_PER_S = 3.35e12
 SEED = 0
 SAMPLE_RATE = 44100
 SONG_SECONDS = 60.0
+STEMS4 = ("drums", "bass", "other", "vocals")   # text.prompts.STEM_NAMES
 CHUNK_SECONDS = 6.0
 PATH_RMS_LIMIT = 1e-3      # the JAX package's kernel gate threshold
 D, FF, HEADS = 512, 2048, 8
@@ -1061,11 +1083,14 @@ def run_path(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.infer.session import Separator
     from audio_to_sheet_music_tpu_torch.models import atht
 
+    from audio_to_sheet_music_tpu_torch.ops import kernel_gate
+
     t0 = time.perf_counter()
     model = atht.load_params(atht.init(SEED))          # + trained head
     sep = Separator(model, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    gate = kernel_gate.last_result()
     if sep.compute_dtype != torch.bfloat16:
         raise SmokeFailure(f"compute dtype {sep.compute_dtype}, want bf16")
     print(f"full-width model on {sep.device} in {sep.compute_dtype}: set-up "
@@ -1120,13 +1145,14 @@ def run_path(profile: bool) -> dict:
     result = {"launches": launches, "warmup_s": warm_s, "wall_s": wall,
               "audio_sec_per_sec": rate, "setup_s": setup_s,
               "peak_mem_gib": peak_gib, "path_rms": rms,
-              "path_ref_rms": ref_rms, "stem_rms_lsb": stem_rms.tolist()}
+              "path_ref_rms": ref_rms, "stem_rms_lsb": stem_rms.tolist(),
+              "gate": gate}
     if profile:
         result["profile"] = profile_device(lambda: sep.separate_all_pcm(song),
                                            "one separate_all_pcm")
         result["per_op_audio_sec_per_sec"] = per_op_rate(model, song)
     stems = pcm.astype(np.float32) * (scales[:, None, None] / 32767.0)
-    return result, model, stems
+    return result, model, stems, pcm
 
 
 def per_op_rate(model, song: np.ndarray) -> float:
@@ -1152,23 +1178,14 @@ def per_op_rate(model, song: np.ndarray) -> float:
 NEW_KERNELS = ("stft", "henc_freq_fused", "dconv_rows", "attn_block")
 
 
-def _counters() -> dict:
-    from audio_to_sheet_music_tpu_torch.ops import (fused_attn, fused_dconv,
-                                                    fused_enc, fused_stft)
-
-    return {"layer_tail": fused_attn.layer_tail,
-            "henc_freq_fused": fused_enc.henc_freq_fused,
-            "dconv_rows": fused_dconv.dconv_rows,
-            "attn_block": fused_attn.attn_block, "stft": fused_stft.stft}
-
-
 def _zero_counters() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
+    from audio_to_sheet_music_tpu_torch.ops.select import zero_launch_counts
+    zero_launch_counts()
 
 
 def _read_counters() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    from audio_to_sheet_music_tpu_torch.ops.select import launch_counts
+    return launch_counts()
 
 
 def _train_config(root: Path):
@@ -2262,6 +2279,273 @@ def run_checkpoints_towers(card: str, model, stems: np.ndarray,
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the kernel gate and several devices
+# ---------------------------------------------------------------------------
+
+def _stem_rms(pcm: np.ndarray, scales: np.ndarray, ref: dict,
+              stems) -> float:
+    """Largest per-stem rms of (dequantised PCM - the float stem)."""
+    dq = pcm.astype(np.float32) * (scales[:, None, None] / 32767.0)
+    return max(float(np.sqrt(np.mean((dq[i] - ref[s]) ** 2)))
+               for i, s in enumerate(stems))
+
+
+def _sync_points(fn) -> dict:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: each
+    place where the host waited for the card, as "the innermost line of
+    the port -> the line that made the call", with its count."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    found: Counter = Counter()
+
+    def short(path: str) -> str:
+        return "/".join(Path(path).parts[-3:])
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack
+                if "audio_to_sheet_music_tpu_torch" in f.filename]
+        where = port[-1] if port else stack[-1]
+        found[f"{short(where.filename)}:{where.lineno} -> "
+              f"{short(filename)}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(found)
+
+
+def _mesh_sweep(label: str, model, mesh, song: np.ndarray, pcm3: np.ndarray,
+                ref_all: dict) -> dict:
+    """``separate_all_pcm`` of the song on ``mesh``: warm, then timed with
+    the launch counters set to 0 just before and read just after."""
+    from audio_to_sheet_music_tpu_torch.infer import chunked
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+
+    sep = Separator(model, mesh=mesh)
+    grid = chunked.plan_chunks(song.shape[-1], sep.segment, sep.overlap,
+                               sep.bucket)
+    schedule = sep._group_schedule(grid, 4)
+    sep.separate_all_pcm(song)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    pcm, scales = sep.separate_all_pcm(song)
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    diff = _pcm_diff(pcm, pcm3)
+    rms = _stem_rms(pcm, scales, ref_all, STEMS4)
+    rate = 4 * SONG_SECONDS / wall
+    print(f"  {label} ({mesh.size} slices on "
+          f"{[str(d) for d in mesh.devices]}): schedule {schedule}, wall "
+          f"{wall:.3f} s, {rate:.2f} audio-sec/sec, int16 diff vs phase 3 "
+          f"{diff}, rms vs separate_all {rms:.3e} (limit "
+          f"{PATH_RMS_LIMIT:.0e}), launches {launches}")
+    for name in ("layer_tail", "henc_freq_fused"):
+        if launches[name] <= 0:
+            raise SmokeFailure(f"{label}: {name} was not launched")
+    if not (math.isfinite(rms) and rms < PATH_RMS_LIMIT):
+        raise SmokeFailure(f"{label}: the sharded sweep differs from the "
+                           "single-device one")
+    return {"devices": [str(d) for d in mesh.devices], "schedule": schedule,
+            "wall_s": wall, "audio_sec_per_sec": rate, "pcm_diff_lsb": diff,
+            "rms_vs_separate_all": rms, "launches": launches,
+            "separator": sep}
+
+
+def _cli_train_dp(root: Path) -> subprocess.Popen:
+    """``cli train --data-parallel`` (every visible card, NCCL) on phase
+    4's synthetic tracks: 2 steps of 8 x 6 s and the validation batch."""
+    from audio_to_sheet_music_tpu_torch.data import synthetic_tracks
+
+    synthetic_tracks(4, seconds=12.0, cache_dir=root / "train", seed=SEED)
+    synthetic_tracks(1, seconds=12.0, cache_dir=root / "test", seed=SEED + 1)
+    cfg = root / "dp.yaml"
+    cfg.write_text(
+        f"data:\n  train_dir: {root / 'train'}\n  test_dir: {root / 'test'}\n"
+        f"  segment_seconds: {CHUNK_SECONDS}\n"
+        f"training:\n  batch_size: {TRAIN_B}\n  num_epochs: 1\n"
+        f"wandb:\n  log_every: 1\n  validate_every: 1\n  save_every: 1\n"
+        f"  checkpoint_dir: {root / 'ckpt'}\n  output_dir: {root / 'out'}\n")
+    return subprocess.Popen(
+        [sys.executable, "-m", "audio_to_sheet_music_tpu_torch.cli", "train",
+         "--config", str(cfg), "--data-parallel", "--max-steps-per-epoch",
+         "2"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_parallel_gate(card: str, path: dict, pcm3: np.ndarray) -> dict:
+    import tempfile
+
+    from audio_to_sheet_music_tpu_torch.models import atht
+    from audio_to_sheet_music_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    print(f"phase 8 on {card}")
+    # phase 3's model as it was: phase 7 trained that one's head
+    model = atht.load_params(atht.init(SEED)).cuda()
+    out = _gate_and_mesh(model, path, pcm3)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p8_") as tmp:
+        t0 = time.perf_counter()
+        cli = _cli_train_dp(Path(tmp))     # runs beside the DP step
+        try:
+            batch = dryrun.make_batch(TRAIN_B, CHUNK_SECONDS)
+            dp = dryrun.dp_step(2, [batch], ["cuda:0", "cuda:0"], "gloo",
+                                "trained", torch.bfloat16, "opt_in")
+            out["dp_step"] = {k: dp[k] for k in (
+                "head_delta", "loss_delta", "ranks_agree", "dp_seconds",
+                "single_seconds")}
+            out["dp_step"]["loss"] = dp["dp"]["metrics"]["loss/total"]
+            out["dp_step"]["rank0_launches"] = dp["dp"]["launches"]
+            print(f"  2 gloo ranks on cuda:0, one opt-in step of "
+                  f"{TRAIN_B} x {CHUNK_SECONDS:.0f} s: loss "
+                  f"{out['dp_step']['loss']:.5f}, head delta "
+                  f"{dp['head_delta']:.3e}, loss delta {dp['loss_delta']:.3e}"
+                  f" (limits 1e-3), ranks agree {dp['ranks_agree']}, rank 0 "
+                  f"launches {dp['dp']['launches']}, {dp['dp_seconds']:.1f} s")
+            if not (dp["head_delta"] < 1e-3 and dp["loss_delta"] < 1e-3
+                    and dp["ranks_agree"]):
+                raise SmokeFailure("the data-parallel step differs from the "
+                                   "single-device step")
+            log, _ = cli.communicate(timeout=300)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+        out["cli_train"] = _check_cli_train(Path(tmp), cli.returncode, log,
+                                            time.perf_counter() - t0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 8 in {out['phase_s']:.1f} s")
+    return out
+
+
+def _check_cli_train(root: Path, rc: int, log: str, seconds: float) -> dict:
+    lines = [json.loads(x) for x in (root / "out" / "metrics.jsonl")
+             .read_text().splitlines()] if rc == 0 else []
+    steps = [r["train/loss/total"] for r in lines if "train/loss/total" in r]
+    val = [r["val/sdr"] for r in lines if "val/sdr" in r]
+    ckpt = (root / "ckpt" / "latest" / "state.pt").exists()
+    print(f"  cli train --data-parallel ({torch.cuda.device_count()} NCCL "
+          f"rank(s)): exit {rc}, losses {steps}, val SDR {val}, rank 0 "
+          f"checkpoint {ckpt}, done {seconds:.1f} s after the DP step began")
+    if rc != 0 or len(steps) != 2 or not all(map(math.isfinite, steps)) \
+            or not ckpt:
+        raise SmokeFailure("cli train --data-parallel failed:\n" + log[-3000:])
+    return {"losses": steps, "val_sdr": val, "checkpoint": ckpt}
+
+
+def _gate_and_mesh(model, path: dict, pcm3: np.ndarray) -> dict:
+    """Phase 8's legs in this process: the gate, the mesh sweeps, the
+    host's waits in ``_heads``, the mesh stream, ``sweep_flops``."""
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+    from audio_to_sheet_music_tpu_torch.infer.streaming import (
+        StreamingSeparator)
+    from audio_to_sheet_music_tpu_torch.ops import kernel_gate
+    from audio_to_sheet_music_tpu_torch.ops.select import (NONE,
+                                                           KernelSelection)
+    from audio_to_sheet_music_tpu_torch.parallel import make_mesh
+    from audio_to_sheet_music_tpu_torch.utils import profiling
+
+    out: dict = {}
+    gate = path["gate"]
+    print(f"  gate of phase 3's Separator: {gate}")
+    if gate is None or not gate["ok"] or not gate["rms"] < PATH_RMS_LIMIT:
+        raise SmokeFailure("phase 3's gate did not run or did not pass")
+    if not all(gate["launches"].get(k) for k in ("layer_tail",
+                                                  "henc_freq_fused")):
+        raise SmokeFailure("phase 3's gate did not launch layer_tail and "
+                           "henc_freq_fused in its kernel pass")
+    out["gate_default"] = gate
+    _zero_counters()
+    opt_in = kernel_gate.ensure_layer_parity(model, torch.bfloat16,
+                                             kernels="opt_in")
+    out["gate_opt_in_launches"] = _read_counters()
+    print(f"  gate at opt_in: {opt_in}, launches "
+          f"{out['gate_opt_in_launches']}")
+    if opt_in is None or not opt_in["ok"]:
+        raise SmokeFailure("the opt-in gate did not run or did not pass")
+    out["gate_opt_in"] = opt_in
+    fwd, args = kernel_gate._default_pair(model, torch.bfloat16)
+
+    def diverging(sel, *a):
+        y = fwd(sel, *a)
+        return y if sel == NONE else y + 1e-2
+
+    try:
+        kernel_gate.ensure_layer_parity(model, torch.bfloat16,
+                                        kernels=KernelSelection(layer=True),
+                                        forward=diverging, args=args)
+    except kernel_gate.KernelParityError as e:
+        print(f"  injected divergence raised: {e}")
+        out["gate_injected"] = kernel_gate.last_result()
+    else:
+        raise SmokeFailure("an injected divergence did not raise")
+
+    song = _song(np.random.default_rng(SEED))
+    single = Separator(model)
+    ref_all = single.separate_all(song)
+    for label, mesh in (("mesh_all_cards", make_mesh()),
+                        ("mesh_2_replicas",
+                         make_mesh(["cuda:0", "cuda:0"]))):
+        out[label] = _mesh_sweep(label, model, mesh, song, pcm3, ref_all)
+    sep2 = out["mesh_2_replicas"].pop("separator")
+    out["mesh_all_cards"].pop("separator")
+
+    with torch.inference_mode():
+        grid_song = torch.from_numpy(song[:, :4 * sep2.segment]).cuda()
+        chunks = torch.stack([grid_song[:, i * sep2.segment:
+                                        (i + 1) * sep2.segment]
+                              for i in range(4)])
+        embs = sep2._stem_embs(STEMS4)
+        sep2._heads(chunks, embs)
+        torch.cuda.synchronize()
+        out["sync_points"] = _sync_points(lambda: sep2._heads(chunks, embs))
+    print(f"  host waits in one 4-chunk group on the 2-replica mesh "
+          f"(file:line: count): {out['sync_points']}")
+    if out["sync_points"]:
+        raise SmokeFailure("_heads makes the host wait for the card between "
+                           "the replicas' launches")
+
+    stream = StreamingSeparator(sep2, stems=("vocals",), block_chunks=3)
+    want = single.separate(song, "vocals")
+    t0 = time.perf_counter()
+    pieces = stream.feed(song)
+    pieces.append(stream.flush())
+    wall = time.perf_counter() - t0
+    got = np.concatenate([p[0] for p in pieces], axis=-1)
+    rms = float(np.sqrt(np.mean((got[:, 1:-1] - want[:, 1:-1]) ** 2)))
+    print(f"  stream on the 2-replica mesh: block 3 -> "
+          f"{stream.block_chunks}, {wall:.3f} s, rms vs separate {rms:.3e}")
+    if stream.block_chunks != 4 or got.shape != song.shape \
+            or not rms < PATH_RMS_LIMIT:
+        raise SmokeFailure("the mesh stream differs from separate")
+    out["stream"] = {"block_chunks": stream.block_chunks, "wall_s": wall,
+                     "rms_vs_separate": rms}
+
+    t0 = time.perf_counter()
+    flops = single.sweep_flops(song.shape[-1], 4)
+    count_s = time.perf_counter() - t0
+    share = flops / (path["wall_s"] * profiling.peak_tflops() * 1e12)
+    print(f"  sweep_flops(60 s, 4 stems) {flops:.4e} ({count_s:.2f} s): "
+          f"{flops / path['wall_s'] / 1e12:.2f} TFLOP/s over phase 3's "
+          f"wall {path['wall_s']:.3f} s, {share:.2%} of the "
+          f"{profiling.peak_tflops():.0f} TFLOP/s bf16 peak")
+    if not flops > 0:
+        raise SmokeFailure("sweep_flops is not positive")
+    out["sweep_flops"] = {"flops": flops, "phase3_wall_s": path["wall_s"],
+                          "tensor_share": share}
+    return out
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -2300,11 +2584,12 @@ def main(argv: list) -> int:
                   eval_dconv(gen), eval_attn_block(gen), eval_stft(gen)]
         for k, at_eval in zip(kernels, k_eval):
             k.update(at_eval)
-        path, model, stems = run_path(profile)
+        path, model, stems, pcm = run_path(profile)
         training = run_training(profile)
         evaluation = run_eval(profile)
         serving = run_serving(profile)
         slice9 = run_checkpoints_towers(card, model, stems, path["launches"])
+        parallel = run_parallel_gate(card, path, pcm)
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
@@ -2325,7 +2610,8 @@ def main(argv: list) -> int:
         {"card": card, "build_s": build_s, "compiled": compiled,
          "kernels": kernels, "path": path, "training": training,
          "eval": evaluation, "serving": serving,
-         "checkpoints_towers": slice9}, indent=1))
+         "checkpoints_towers": slice9, "parallel_gate": parallel},
+        indent=1, default=str))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -11,6 +11,7 @@ from __future__ import annotations
 import stat
 
 import pytest
+import torch
 
 from audio_to_sheet_music_tpu_torch.ops import build
 
@@ -78,3 +79,62 @@ def test_launch_errors_raise():
     build.check(0, "ok")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         build.check(700, "layer_tail")
+
+
+class _FakeDevice:
+    """``torch.cuda.device`` without a card: sets and restores a recorded
+    current device."""
+
+    current = 0
+
+    def __init__(self, device):
+        self.index = torch.device(device).index
+
+    def __enter__(self):
+        self.prev, _FakeDevice.current = _FakeDevice.current, self.index
+
+    def __exit__(self, *exc):
+        _FakeDevice.current = self.prev
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    monkeypatch.setattr(_FakeDevice, "current", 0)
+    monkeypatch.setattr(torch.cuda, "device", _FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: _FakeDevice.current)
+
+
+def test_launch_makes_the_input_card_current(fake_cuda):
+    """The launcher runs with the input's card current, and the caller's
+    current card comes back after it, also when the launch fails."""
+    seen = []
+
+    def stub_launch(*args):
+        seen.append((torch.cuda.current_device(), args))
+        return 0
+
+    build.launch("k", torch.device("cuda", 3), stub_launch, 7, 8)
+    assert seen == [(3, (7, 8))] and torch.cuda.current_device() == 0
+    with pytest.raises(RuntimeError, match="k: CUDA error 9"):
+        build.launch("k", torch.device("cuda", 1), lambda: 9)
+    assert torch.cuda.current_device() == 0
+
+
+def test_every_kernel_launch_goes_through_the_guard():
+    """The five ctypes launch sites (``layer_tail``, ``attn_block``,
+    ``henc_freq_fused``, ``dconv_rows``, ``stft``) hand their launcher to
+    ``build.launch`` and call none directly: their CUDA branch needs CUDA
+    tensors, so this reads the source."""
+    import re
+    from pathlib import Path
+
+    ops = Path(build.__file__).parent
+    guarded, direct = {}, []
+    for name in ("fused_attn", "fused_dconv", "fused_enc", "fused_stft"):
+        src = (ops / f"{name}.py").read_text()
+        guarded[name] = len(re.findall(r"build\.launch\(", src))
+        direct += re.findall(r"\w+_launch\(", src)
+    assert guarded == {"fused_attn": 2, "fused_dconv": 1, "fused_enc": 1,
+                       "fused_stft": 1}
+    assert direct == []

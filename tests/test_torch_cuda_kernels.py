@@ -482,3 +482,98 @@ def test_new_kernels_refuse_a_wrong_dtype(gen):
     with pytest.raises(TypeError):
         fused_stft.stft(torch.randn((1, 600), device="cuda",
                                     dtype=torch.float64), 256, 128, 3)
+
+
+def test_kernels_launch_on_their_inputs_card(gen):
+    """Each kernel with its inputs on card 0 while the last card is the
+    current device: every launch must run on the input's card (with that
+    card's shared-memory attributes and SM count).  On a machine with one
+    card the two are the same card, and this shows only that the guarded
+    path runs."""
+    first = torch.device("cuda", 0)
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    with torch.cuda.device(first):
+        layer = _layer_args(2, 100, 80, 512, 2048, gen)
+        block = _block_args(2, 100, 80, 512, gen)
+        enc = htdemucs.HEncLayer(4, 48, freq=True, gen=gen).cuda()
+        xe = torch.randn((1, 4, 256, 70), generator=gen).to(
+            "cuda", torch.bfloat16)
+        dconv = _dconv(96, gen)
+        xd = torch.randn((3, 96, 70), generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        xs = torch.randn((2, 10 * 1024 + 4096), generator=gen).cuda()
+    calls = [
+        (fused_attn.layer_tail, fused_attn.layer_tail_plain,
+         (*layer, 8), (4 * 2.0 ** -8, 2.0 ** -8)),
+        (fused_attn.attn_block, fused_attn.attn_block_plain,
+         (*block, 8), (4 * 2.0 ** -8, 2.0 ** -8)),
+        (fused_enc.henc_freq_fused, fused_enc.henc_freq_plain, (enc, xe),
+         (2 * 2.0 ** -8, 2.0 ** -9)),
+        (fused_dconv.dconv_rows, fused_dconv.dconv_rows_plain, (dconv, xd),
+         (2 * 2.0 ** -8, 2.0 ** -9)),
+        (fused_stft.stft, fused_stft.stft_plain, (xs, 4096, 1024, 11),
+         (1e-4, 1e-5)),
+    ]
+    for kernel, plain, args, tol in calls:
+        before = kernel.launches
+        with torch.inference_mode(), torch.cuda.device(last):
+            got = kernel(*args)
+        with torch.inference_mode():
+            want = plain(*args)
+        torch.cuda.synchronize(first)
+        assert kernel.launches == before + 1
+        assert got.device == first
+        if got.is_complex():
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        _close(got, want, *tol)
+
+
+def test_istft_is_torch_istft_on_the_card(gen):
+    """``ops.dsp.istft`` (the heads' inverse STFT, without ``torch.istft``'s
+    host-side envelope check) against ``torch.istft`` on the card: the
+    same steps, so the same values and gradients, and no wait for the
+    card."""
+    from audio_to_sheet_music_tpu_torch.ops import dsp
+
+    z = torch.randn((8, 2049, 14), generator=gen,
+                    dtype=torch.complex64).cuda().requires_grad_(True)
+    g = torch.randn((8, 11025), generator=gen).cuda()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dsp.istft(z, 11025)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    (got * g).sum().backward()
+    grad, z.grad = z.grad.clone(), None
+    want = torch.istft(z, 4096, 1024, window=dsp._window(4096, z.device),
+                       win_length=4096, center=True, normalized=True,
+                       length=11025)
+    (want * g).sum().backward()
+    assert torch.equal(got, want) and torch.equal(grad, z.grad)
+
+
+def test_parity_gate_reads_its_kernel_pass_on_the_card(gen, monkeypatch):
+    """The gate's kernel pass on the card, read by the launch counters: a
+    512-wide transformer routes to ``layer_tail``, so the default gate
+    runs and passes; widths no kernel takes (a 96-wide transformer, encoder
+    channels that are not multiples of 8) run per op, launch nothing, and
+    the gate is kept as skipped.  Each model has its own gate: the results
+    are kept a (selection, card), so they are cleared in between."""
+    from audio_to_sheet_music_tpu_torch.models import atht, clap_text
+    from audio_to_sheet_music_tpu_torch.ops import kernel_gate
+
+    monkeypatch.setattr(kernel_gate, "_RESULTS", {})
+    res = kernel_gate.ensure_layer_parity(_narrow_model().cuda(),
+                                          torch.bfloat16)
+    assert res is not None and res["ok"] and "skipped" not in res
+    assert res["launches"].get("layer_tail", 0) > 0
+    g = torch.Generator().manual_seed(0)
+    narrow = atht.AudioTextHTDemucs(
+        htdemucs.HTDemucs(channels=(12, 20, 28, 36), bottom_channels=96,
+                          t_layers=2, gen=g),
+        clap_text.ClapText(num_layers=2, hidden=128, gen=g),
+        atht.Head(decoder_channels=(36, 20, 12, 12, 4), gen=g)).cuda()
+    monkeypatch.setattr(kernel_gate, "_RESULTS", {})
+    assert kernel_gate.ensure_layer_parity(narrow, torch.bfloat16) is None
+    res = kernel_gate.last_result()
+    assert res["launches"] == {} and "skipped" in res

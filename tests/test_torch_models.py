@@ -198,3 +198,68 @@ def test_trained_head_graft_matches_jax_loader():
     assert set(got) == set(want) and len(got) == 50
     for k, v in got.items():
         np.testing.assert_array_equal(v.numpy(), want[k])
+
+
+def test_resize_taps_made_in_inference_mode_serve_autograd():
+    """The linear resize's taps are kept per geometry and device; a sweep
+    under inference mode may make them, and a training step's backward
+    then goes through them."""
+    from audio_to_sheet_music_tpu_torch.nn import core as L
+
+    with torch.inference_mode():
+        first = L.interpolate_linear(torch.ones(1, 1, 37), 41)
+    x = torch.randn(1, 2, 37, requires_grad=True)
+    L.interpolate_linear(x, 41).sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
+    torch.testing.assert_close(first, torch.ones(1, 1, 41))
+
+
+@pytest.mark.parametrize("b,n_fft,hop,frames,length", [
+    (3, 4096, 1024, 20, 16000), (2, 256, 64, 9, 500),
+    (4, 4096, 1024, 15, 11025 + 3 * 1024)])
+def test_istft_is_torch_istft_bit_for_bit(b, n_fft, hop, frames, length):
+    """``dsp.istft`` is ``torch.istft`` without its host-side envelope
+    check: the same values and gradients, bit for bit."""
+    torch.manual_seed(0)
+    z = torch.randn(b, n_fft // 2 + 1, frames, dtype=torch.complex64,
+                    requires_grad=True)
+    g = torch.randn(b, length)
+    got = TD.istft(z, length, n_fft, hop)
+    (got * g).sum().backward()
+    grad, z.grad = z.grad.clone(), None
+    want = torch.istft(z, n_fft, hop, window=torch.hann_window(n_fft),
+                       win_length=n_fft, center=True, normalized=True,
+                       length=length)
+    (want * g).sum().backward()
+    assert torch.equal(got, want) and torch.equal(grad, z.grad)
+
+
+@pytest.mark.parametrize("dim,ff,fused", [(64, 256, True), (96, 384, False),
+                                          (128, 200, False)])
+def test_layer_selection_routes_by_the_kernels_widths(monkeypatch, dim, ff,
+                                                      fused):
+    """Under the ``layer`` selection a transformer layer goes to
+    ``layer_tail`` only at widths the kernel takes (64-wide heads, D and FF
+    in 64-column tiles), as the JAX ``_use_pallas_layer`` routes by its
+    kernel's ``supports_layer``; other widths run per op."""
+    from audio_to_sheet_music_tpu_torch.ops import fused_attn
+
+    calls = []
+
+    def spy(kind):
+        real = getattr(fused_attn, kind)
+        monkeypatch.setattr(fused_attn, kind,
+                            lambda *a: calls.append(kind) or real(*a))
+
+    spy("fused_self_layer")
+    spy("fused_cross_layer")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 5, dim), generator=g)
+    mem = torch.randn((1, 7, dim), generator=g)
+    with torch.inference_mode():
+        TH._self_layer_apply(TH.TransformerLayer(dim, False, ff, g), x,
+                             "default")
+        TH._cross_layer_apply(TH.TransformerLayer(dim, True, ff, g), x, mem,
+                              "default")
+    assert calls == (["fused_self_layer", "fused_cross_layer"] if fused
+                     else [])
