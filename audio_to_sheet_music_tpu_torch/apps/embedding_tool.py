@@ -62,7 +62,7 @@ def embed_prompts(prompts, checkpoint=None, normalize: bool = True,
 
     device = open_device(device, "embed_prompts")
     if model is None:
-        model = atht.load_from_env(checkpoint)
+        model = atht.load_from_env(checkpoint, device=device)
     ids, mask = default_tokenizer(require_real=model.pretrained)(prompts)
     fn = clap_text.get_text_features if normalize else clap_text.text_embeds
     emb = fn(model.clap.to(device), torch.from_numpy(ids).to(device),

@@ -88,7 +88,8 @@ def main(argv=None) -> None:
     from ..utils import audio_io
 
     mixture, gt_stems = load_track(Path(args.track))
-    model = atht.load_params(atht.init(0), args.checkpoint)
+    model = atht.load_params(atht.init(0, device=args.device),
+                             args.checkpoint)
     sep = Separator(model, args.segment_seconds, args.overlap_seconds,
                     device=args.device, kernels=args.kernels)
     out_dir = Path(args.output_dir)

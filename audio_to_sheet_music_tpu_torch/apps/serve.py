@@ -54,7 +54,7 @@ def build_separator(checkpoint: str | None, config: str | None = None,
                 warnings.warn(
                     f"training.resume_from={cfg.training.resume_from!r} "
                     "does not exist; serving with the default head")
-    return Separator(atht.load_from_env(checkpoint),
+    return Separator(atht.load_from_env(checkpoint, device=device),
                      segment_seconds=segment_s, overlap_seconds=overlap_s,
                      device=device, normalize_text=True, kernels=kernels,
                      deterministic=True)

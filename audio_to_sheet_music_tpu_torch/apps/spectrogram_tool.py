@@ -47,7 +47,8 @@ def main(argv=None) -> None:
         raise SystemExit(f"no matching tracks under {args.test_dir!r}"
                          + (f" for names {args.tracks}" if args.tracks
                             else ""))
-    sep = Separator(atht.load_from_env(args.checkpoint), device=args.device,
+    sep = Separator(atht.load_from_env(args.checkpoint, device=args.device),
+                    device=args.device,
                     kernels=args.kernels)
     out_root = Path(args.output_dir)
     for track in tracks:

@@ -150,7 +150,7 @@ def benchmark_main(argv=None) -> None:
     cfg = (Config.from_yaml(args.config) if Path(args.config).exists()
            else Config())
     open_device(args.device, "benchmark")     # no card: raise, skip nothing
-    model = atht.load_from_env(args.checkpoint)
+    model = atht.load_from_env(args.checkpoint, device=args.device)
     if not model.pretrained:
         print("benchmark: no converted checkpoint loaded; models run with "
               "random or .npz weights, so scores are not pretrained-baseline "
@@ -165,7 +165,7 @@ def benchmark_main(argv=None) -> None:
         elif name == "ours-random":
             # the ablation row: the same towers, the head at its init
             registry["AudioTextHTDemucs (Ours, random head)"] = OursModel(
-                atht.init_from_env(0), **run)
+                atht.init_from_env(0, args.device), **run)
         elif name == "htdemucs":
             m = HTDemucsBaseline(model.htdemucs, pretrained=model.pretrained,
                                  **run)

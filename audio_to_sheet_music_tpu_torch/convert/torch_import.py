@@ -32,6 +32,8 @@ from typing import Any, Dict, Mapping
 import torch
 from torch import nn
 
+from ..nn import prng
+
 __all__ = [
     "load_torch_state_dict",
     "to_reference_name",
@@ -135,7 +137,7 @@ def import_htdemucs_state(state: Mapping[str, torch.Tensor], prefix: str = "",
     from ..models import htdemucs
 
     model = model if model is not None else htdemucs.HTDemucs(
-        gen=torch.Generator().manual_seed(0))
+        key=prng.PRNGKey(0))
     sub = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
     return load_into(model, sub, strict, "htdemucs")
 
@@ -147,7 +149,7 @@ def import_clap_state(state: Mapping[str, torch.Tensor], prefix: str = "",
     from ..models import clap_text
 
     model = model if model is not None else clap_text.ClapText(
-        gen=torch.Generator().manual_seed(0))
+        key=prng.PRNGKey(0))
     sub = {_clap_key(k[len(prefix):]): v for k, v in state.items()
            if k.startswith(prefix)}
     return load_into(model, sub, strict, "clap")
@@ -160,7 +162,7 @@ def import_clap_audio_state(state: Mapping[str, torch.Tensor],
     from ..models import clap_audio
 
     model = model if model is not None else clap_audio.ClapAudio(
-        gen=torch.Generator().manual_seed(0))
+        key=prng.PRNGKey(0))
     sub = {k.replace(HF_AUDIO_PREFIX, ""): v for k, v in state.items()
            if not k.endswith("num_batches_tracked")}
     return load_into(model, sub, strict, "clap_audio")

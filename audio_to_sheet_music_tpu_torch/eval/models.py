@@ -25,6 +25,7 @@ from ..convert.torch_import import load_into, load_torch_state_dict
 from ..infer import chunked
 from ..infer.session import SAMPLE_RATE, Separator, open_device
 from ..models import atht, clap_text, clapsep, htdemucs
+from ..nn import prng
 from ..ops.select import Kernels, resolve
 from ..text.prompts import STEM_NAMES
 from ..text.tokenizer import default_tokenizer
@@ -140,7 +141,7 @@ class CLAPSepModel(SeparationModel):
         weights = weights or os.environ.get("ATSM_CLAPSEP_CKPT")
         self.name = ("CLAPSep (Baseline)" if weights
                      else "CLAPSep (random init)")
-        model = clapsep.ClapSep(self.cfg, gen=torch.Generator().manual_seed(0))
+        model = clapsep.ClapSep(self.cfg, key=prng.PRNGKey(0, self.device))
         if weights:
             if not Path(weights).exists():
                 raise RuntimeError(f"CLAPSep weights not found at {weights}; "
@@ -151,7 +152,7 @@ class CLAPSepModel(SeparationModel):
                   "(set ATSM_CLAPSEP_CKPT to load a checkpoint)")
         self.model = model.to(self.device).requires_grad_(False)
         if clap is None:
-            clap = clap_text.ClapText(gen=torch.Generator().manual_seed(1))
+            clap = clap_text.ClapText(key=prng.PRNGKey(1, self.device))
         self.clap = clap.to(self.device).requires_grad_(False)
         self._tok = tokenizer or default_tokenizer(
             require_real=pretrained or bool(weights))

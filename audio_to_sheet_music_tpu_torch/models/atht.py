@@ -37,6 +37,7 @@ from torch import nn
 
 from ..convert import jax_params
 from ..nn import core as L
+from ..nn import prng
 from ..nn.attention import MHA
 from ..ops import dsp
 from ..ops.select import Kernels, resolve
@@ -54,49 +55,60 @@ DEFAULT_HEAD = Path(__file__).resolve().parents[2] / "artifacts" / "trained_head
 # ---------------------------------------------------------------------------
 
 class TextCrossAttention(nn.Module):
+    """The JAX ``text_cross_attention_init``: ``split(key, 6)`` for the q, k
+    and v projections, the attention and the two MLP layers."""
+
     def __init__(self, feat_dim: int = MODEL_DIM, text_dim: int = TEXT_DIM,
-                 gen=None):
+                 key=None):
         super().__init__()
-        self.q_proj = L.Linear(feat_dim, feat_dim, gen)
-        self.k_proj = L.Linear(text_dim, feat_dim, gen)
-        self.v_proj = L.Linear(text_dim, feat_dim, gen)
-        self.attn = MHA(feat_dim, gen)
-        self.out_mlp = nn.ModuleDict({"0": L.Linear(feat_dim, feat_dim, gen),
-                                      "2": L.Linear(feat_dim, feat_dim, gen)})
+        k = L.split(key, 6)
+        self.q_proj = L.Linear(feat_dim, feat_dim, k[0])
+        self.k_proj = L.Linear(text_dim, feat_dim, k[1])
+        self.v_proj = L.Linear(text_dim, feat_dim, k[2])
+        self.attn = MHA(feat_dim, k[3])
+        self.out_mlp = nn.ModuleDict({"0": L.Linear(feat_dim, feat_dim, k[4]),
+                                      "2": L.Linear(feat_dim, feat_dim, k[5])})
         self.norm_q = L.Norm(feat_dim)
         self.norm_out = L.Norm(feat_dim)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cin: int, cout: int, freq: bool, last: bool, gen=None):
+    def __init__(self, cin: int, cout: int, freq: bool, last: bool, key=None):
         super().__init__()
-        self.conv = (L.ConvTranspose2d(cin, cout, (8, 1), gen) if freq
-                     else L.ConvTranspose1d(cin, cout, 8, gen))
+        self.conv = (L.ConvTranspose2d(cin, cout, (8, 1), key) if freq
+                     else L.ConvTranspose1d(cin, cout, 8, key))
         if not last:
             self.norm = L.Norm(cout)
 
 
 class Decoder(nn.Module):
-    def __init__(self, freq: bool, chans=tuple(DECODER_CHANNELS), gen=None):
+    """The JAX ``_decoder_init``: ``key, k = split(key)`` per layer."""
+
+    def __init__(self, freq: bool, chans=tuple(DECODER_CHANNELS), key=None):
         super().__init__()
         n = len(chans) - 1
-        self.layers = nn.ModuleList([
-            DecoderLayer(chans[i], chans[i + 1], freq, i == n - 1, gen)
-            for i in range(n)])
+        layers = []
+        for i in range(n):
+            key, k = L.split(key)
+            layers.append(DecoderLayer(chans[i], chans[i + 1], freq,
+                                       i == n - 1, k))
+        self.layers = nn.ModuleList(layers)
 
 
 class Head(nn.Module):
-    """Trainable head: cross-attention + decoders + output convs (~3 M)."""
+    """Trainable head: cross-attention + decoders + output convs (~3 M);
+    keys as the JAX ``head_init``: ``split(key, 5)`` in that order."""
 
     def __init__(self, decoder_channels=tuple(DECODER_CHANNELS),
-                 text_dim: int = TEXT_DIM, gen=None):
+                 text_dim: int = TEXT_DIM, key=None):
         super().__init__()
         chans = tuple(decoder_channels)
-        self.text_attn = TextCrossAttention(chans[0], text_dim, gen)
-        self.freq_decoder = Decoder(True, chans, gen)
-        self.time_decoder = Decoder(False, chans, gen)
-        self.freq_out = L.Conv2d(chans[-1], 2, (1, 1), gen)
-        self.time_out = L.Conv1d(chans[-1], 2, 1, gen)
+        k = L.split(key, 5)
+        self.text_attn = TextCrossAttention(chans[0], text_dim, k[0])
+        self.freq_decoder = Decoder(True, chans, k[1])
+        self.time_decoder = Decoder(False, chans, k[2])
+        self.freq_out = L.Conv2d(chans[-1], 2, (1, 1), k[3])
+        self.time_out = L.Conv1d(chans[-1], 2, 1, k[4])
 
 
 class AudioTextHTDemucs(nn.Module):
@@ -112,41 +124,59 @@ class AudioTextHTDemucs(nn.Module):
         self.pretrained = False
 
 
-def init(seed: int = 0, materialize: bool = True) -> AudioTextHTDemucs:
-    """Full-width model from the port's own seeded init (on the CPU; move it
-    with ``.to(device)``).  ``materialize=False`` skips the random draws
-    (storage uninitialised), for a model that is about to be loaded."""
-    gen = torch.Generator().manual_seed(seed) if materialize else None
-    return AudioTextHTDemucs(htdemucs.HTDemucs(gen=gen),
-                             clap_text.ClapText(gen=gen), Head(gen=gen))
+def _keys(seed: int, device, materialize: bool) -> list:
+    """``split(PRNGKey(seed), 3)`` on ``device`` (towers, CLAP, head), as
+    the JAX ``init`` / ``init_tiny`` split theirs; three Nones (no draws)
+    without ``materialize``."""
+    if not materialize:
+        return [None] * 3
+    return prng.split(prng.PRNGKey(seed, device), 3)
 
 
-def init_tiny(seed: int = 0, materialize: bool = True) -> AudioTextHTDemucs:
-    """The tiny family member of the JAX ``atht.init_tiny``: full wiring at
-    ~1/100 of the width, for tests."""
-    gen = torch.Generator().manual_seed(seed) if materialize else None
-    return AudioTextHTDemucs(
+def init(seed: int = 0, materialize: bool = True,
+         device: str | torch.device = "cpu") -> AudioTextHTDemucs:
+    """The full-width model the JAX ``atht.init(jax.random.PRNGKey(seed))``
+    builds, the same numbers (uniform leaves bit for bit, normal leaves
+    within ``prng.NORMAL_RTOL``), drawn on ``device``.  Seed 0's towers are
+    the ones the committed head was trained on.  ``materialize=False``
+    skips the draws (storage uninitialised, on the CPU), for a model that
+    is about to be loaded."""
+    k1, k2, k3 = _keys(seed, device, materialize)
+    model = AudioTextHTDemucs(htdemucs.HTDemucs(key=k1),
+                              clap_text.ClapText(key=k2), Head(key=k3))
+    return model.to(device) if materialize else model
+
+
+def init_tiny(seed: int = 0, materialize: bool = True,
+              device: str | torch.device = "cpu") -> AudioTextHTDemucs:
+    """The JAX ``atht.init_tiny(jax.random.PRNGKey(seed))``: full wiring at
+    ~1/100 of the width, for tests, with the same numbers as ``init``."""
+    k1, k2, k3 = _keys(seed, device, materialize)
+    model = AudioTextHTDemucs(
         htdemucs.HTDemucs(channels=(8, 16, 24, 32), bottom_channels=64,
-                          t_layers=2, gen=gen),
-        clap_text.ClapText(num_layers=2, hidden=128, gen=gen),
-        Head(decoder_channels=(32, 16, 8, 8, 4), gen=gen))
+                          t_layers=2, key=k1),
+        clap_text.ClapText(num_layers=2, hidden=128, key=k2),
+        Head(decoder_channels=(32, 16, 8, 8, 4), key=k3))
+    return model.to(device) if materialize else model
 
 
-def init_from_env(seed: int = 0) -> AudioTextHTDemucs:
+def init_from_env(seed: int = 0, device: str | torch.device = "cpu"
+                  ) -> AudioTextHTDemucs:
     """``init_tiny`` under ``ATSM_TINY_MODEL=1`` (command-line runs at test
     size), else ``init``: the JAX ``atht.init_from_env``."""
     if os.environ.get("ATSM_TINY_MODEL") == "1":
-        return init_tiny(seed)
-    return init(seed)
+        return init_tiny(seed, device=device)
+    return init(seed, device=device)
 
 
-def load_from_env(checkpoint: str | Path | None = None, seed: int = 0
-                  ) -> AudioTextHTDemucs:
-    """The commands' model: ``init_from_env`` with ``checkpoint`` (or the
-    committed trained head) loaded by ``load_params``.  A test-size model
-    without a checkpoint keeps its random head, since the committed head is
-    full width, as in the JAX package."""
-    model = init_from_env(seed)
+def load_from_env(checkpoint: str | Path | None = None, seed: int = 0,
+                  device: str | torch.device = "cpu") -> AudioTextHTDemucs:
+    """The commands' model: ``init_from_env`` (drawn on ``device``) with
+    ``checkpoint`` (or the committed trained head) loaded by
+    ``load_params``.  A test-size model without a checkpoint keeps its
+    random head, since the committed head is full width, as in the JAX
+    package."""
+    model = init_from_env(seed, device)
     if checkpoint or os.environ.get("ATSM_TINY_MODEL") != "1":
         load_params(model, checkpoint)
     return model

@@ -14,20 +14,23 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..nn import core as L
 from . import clap_audio, clap_text
 
 LOGIT_SCALE_INIT = math.log(1 / 0.07)   # HF ClapConfig.logit_scale_init_value
 
 
 class Clap(nn.Module):
-    """``text`` and ``audio`` default to the full-width towers."""
+    """``text`` and ``audio`` default to the full-width towers, drawn from
+    ``split(key)`` as the JAX ``clap_init`` draws them."""
 
     def __init__(self, text: clap_text.ClapText | None = None,
-                 audio: clap_audio.ClapAudio | None = None, gen=None):
+                 audio: clap_audio.ClapAudio | None = None, key=None):
         super().__init__()
-        self.text = text if text is not None else clap_text.ClapText(gen=gen)
+        kt, ka = L.split(key)
+        self.text = text if text is not None else clap_text.ClapText(key=kt)
         self.audio = (audio if audio is not None
-                      else clap_audio.ClapAudio(gen=gen))
+                      else clap_audio.ClapAudio(key=ka))
         self.logit_scale_t = nn.Parameter(torch.tensor(LOGIT_SCALE_INIT))
         self.logit_scale_a = nn.Parameter(torch.tensor(LOGIT_SCALE_INIT))
 

@@ -52,27 +52,30 @@ MLP_RATIO = 4
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, dim: int, heads: int, gen=None):
+    def __init__(self, dim: int, heads: int, keys=(None, None, None)):
         super().__init__()
-        self.query = L.Linear(dim, dim, gen)
-        self.key = L.Linear(dim, dim, gen)
-        self.value = L.Linear(dim, dim, gen)
+        self.query = L.Linear(dim, dim, keys[0])
+        self.key = L.Linear(dim, dim, keys[1])
+        self.value = L.Linear(dim, dim, keys[2])
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros(((2 * WINDOW - 1) ** 2, heads)))
 
 
-def _block(dim: int, heads: int, gen) -> nn.ModuleDict:
+def _block(dim: int, heads: int, key) -> nn.ModuleDict:
+    """The JAX ``_layer_init``: ``split(key, 7)``, q/k/v, the attention
+    output, the MLP's two layers."""
+    k = L.split(key, 7)
     return nn.ModuleDict({
         "layernorm_before": L.Norm(dim),
         "attention": nn.ModuleDict({
-            "self": SelfAttention(dim, heads, gen),
-            "output": nn.ModuleDict({"dense": L.Linear(dim, dim, gen)}),
+            "self": SelfAttention(dim, heads, k[:3]),
+            "output": nn.ModuleDict({"dense": L.Linear(dim, dim, k[3])}),
         }),
         "layernorm_after": L.Norm(dim),
         "intermediate": nn.ModuleDict({
-            "dense": L.Linear(dim, dim * MLP_RATIO, gen)}),
+            "dense": L.Linear(dim, dim * MLP_RATIO, k[4])}),
         "output": nn.ModuleDict({
-            "dense": L.Linear(dim * MLP_RATIO, dim, gen)}),
+            "dense": L.Linear(dim * MLP_RATIO, dim, k[5])}),
     })
 
 
@@ -88,29 +91,35 @@ class BatchNorm(nn.Module):
 
 
 class ClapAudio(nn.Module):
-    """HTSAT-tiny + projection at full width (there is no smaller member)."""
+    """HTSAT-tiny + projection at full width (there is no smaller member).
+    Keys as the JAX ``clap_audio_init``: ``split(key, 16)`` handed out to
+    the blocks and downsamplers stage by stage, then one split in three for
+    the patch embedding and the projection."""
 
-    def __init__(self, gen=None):
+    def __init__(self, key=None):
         super().__init__()
-        self.patch_embed = nn.ModuleDict({
-            "proj": L.Conv2d(1, EMBED_DIM, (PATCH_SIZE, PATCH_SIZE), gen),
-            "norm": L.Norm(EMBED_DIM)})
+        ki = iter(L.split(key, 16))
         stages = []
         for i, depth in enumerate(DEPTHS):
             dim = EMBED_DIM * 2 ** i
             stage = nn.ModuleDict({"blocks": nn.ModuleList(
-                [_block(dim, NUM_HEADS[i], gen) for _ in range(depth)])})
+                [_block(dim, NUM_HEADS[i], next(ki)) for _ in range(depth)])})
             if i < len(DEPTHS) - 1:
                 stage["downsample"] = nn.ModuleDict({
-                    "reduction": L.Linear(4 * dim, 2 * dim, gen, bias=False),
+                    "reduction": L.Linear(4 * dim, 2 * dim, next(ki),
+                                          bias=False),
                     "norm": L.Norm(4 * dim)})
             stages.append(stage)
+        kp = L.split(next(ki), 3)
+        self.patch_embed = nn.ModuleDict({
+            "proj": L.Conv2d(1, EMBED_DIM, (PATCH_SIZE, PATCH_SIZE), kp[0]),
+            "norm": L.Norm(EMBED_DIM)})
         self.layers = nn.ModuleList(stages)
         self.batch_norm = BatchNorm(NUM_MEL_BINS)
         self.norm = L.Norm(HIDDEN)
         self.audio_projection = nn.ModuleDict({
-            "linear1": L.Linear(HIDDEN, PROJECTION_DIM, gen),
-            "linear2": L.Linear(PROJECTION_DIM, PROJECTION_DIM, gen)})
+            "linear1": L.Linear(HIDDEN, PROJECTION_DIM, kp[1]),
+            "linear2": L.Linear(PROJECTION_DIM, PROJECTION_DIM, kp[2])})
 
 
 # ---------------------------------------------------------------------------

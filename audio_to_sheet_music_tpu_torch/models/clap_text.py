@@ -31,22 +31,23 @@ PAD_TOKEN_ID = 1
 LN_EPS = 1e-12
 
 
-def _layer(hidden: int, ff: int, gen) -> nn.ModuleDict:
+def _layer(hidden: int, ff: int, key) -> nn.ModuleDict:
+    k = L.split(key, 6)
     return nn.ModuleDict({
         "attention": nn.ModuleDict({
             "self": nn.ModuleDict({
-                "query": L.Linear(hidden, hidden, gen),
-                "key": L.Linear(hidden, hidden, gen),
-                "value": L.Linear(hidden, hidden, gen),
+                "query": L.Linear(hidden, hidden, k[0]),
+                "key": L.Linear(hidden, hidden, k[1]),
+                "value": L.Linear(hidden, hidden, k[2]),
             }),
             "output": nn.ModuleDict({
-                "dense": L.Linear(hidden, hidden, gen),
+                "dense": L.Linear(hidden, hidden, k[3]),
                 "LayerNorm": L.Norm(hidden),
             }),
         }),
-        "intermediate": nn.ModuleDict({"dense": L.Linear(hidden, ff, gen)}),
+        "intermediate": nn.ModuleDict({"dense": L.Linear(hidden, ff, k[4])}),
         "output": nn.ModuleDict({
-            "dense": L.Linear(ff, hidden, gen),
+            "dense": L.Linear(ff, hidden, k[5]),
             "LayerNorm": L.Norm(hidden),
         }),
     })
@@ -54,25 +55,30 @@ def _layer(hidden: int, ff: int, gen) -> nn.ModuleDict:
 
 class ClapText(nn.Module):
     """Defaults = laion/clap-htsat-unfused; smaller values build test-sized
-    family members (heads = hidden // 64)."""
+    family members (heads = hidden // 64).  Keys as the JAX
+    ``clap_text_init``: ``split(key, num_layers + 5)``, six per layer, then
+    three for the embeddings and three for the pooler and projection."""
 
     def __init__(self, num_layers: int = NUM_LAYERS, hidden: int = HIDDEN,
                  ff: int | None = None, vocab_size: int = VOCAB_SIZE,
-                 projection_dim: int = PROJECTION_DIM, gen=None):
+                 projection_dim: int = PROJECTION_DIM, key=None):
         super().__init__()
         ff = ff if ff is not None else 4 * hidden
+        keys = L.split(key, num_layers + 5)
+        ke = L.split(keys[num_layers], 3)
+        kp = L.split(keys[num_layers + 1], 3)
         self.embeddings = nn.ModuleDict({
-            "word_embeddings": L.Embedding(vocab_size, hidden, gen),
-            "position_embeddings": L.Embedding(MAX_POSITIONS, hidden, gen),
-            "token_type_embeddings": L.Embedding(1, hidden, gen),
+            "word_embeddings": L.Embedding(vocab_size, hidden, ke[0]),
+            "position_embeddings": L.Embedding(MAX_POSITIONS, hidden, ke[1]),
+            "token_type_embeddings": L.Embedding(1, hidden, ke[2]),
             "LayerNorm": L.Norm(hidden),
         })
-        self.layer = nn.ModuleList([_layer(hidden, ff, gen)
-                                    for _ in range(num_layers)])
-        self.pooler = nn.ModuleDict({"dense": L.Linear(hidden, hidden, gen)})
+        self.layer = nn.ModuleList([_layer(hidden, ff, keys[i])
+                                    for i in range(num_layers)])
+        self.pooler = nn.ModuleDict({"dense": L.Linear(hidden, hidden, kp[0])})
         self.text_projection = nn.ModuleDict({
-            "linear1": L.Linear(hidden, projection_dim, gen),
-            "linear2": L.Linear(projection_dim, projection_dim, gen),
+            "linear1": L.Linear(hidden, projection_dim, kp[1]),
+            "linear2": L.Linear(projection_dim, projection_dim, kp[2]),
         })
 
 

@@ -14,7 +14,7 @@ benchmark's third model: language-queried magnitude masking of a mono
   phase is ``z / max(|z|, 1e-8)``; iSTFT.
 
 Attention is the port's plain ``nn.attention.mha`` (matmul and softmax).
-The seeded init draws from the JAX init's distributions, not its numbers.
+A seeded init draws the JAX ``clapsep_init``'s numbers from the same key.
 """
 
 from __future__ import annotations
@@ -66,32 +66,40 @@ TINY = ClapSepConfig(lan_embed_dim=1024, depths=(1, 1), d_attn=64,
 
 
 class Block(nn.Module):
-    """Pre-LN self-attention block with FiLM conditioning."""
+    """Pre-LN self-attention block with FiLM conditioning; keys as the JAX
+    ``_block_init``: ``split(key, 5)`` for the attention, FiLM and MLP."""
 
-    def __init__(self, cfg: ClapSepConfig, gen=None):
+    def __init__(self, cfg: ClapSepConfig, key=None):
         super().__init__()
         d = cfg.d_attn
-        self.attn = MHA(d, gen)
-        self.film = L.Linear(cfg.lan_embed_dim, 2 * d, gen)
-        self.linear1 = L.Linear(d, 4 * d, gen)
-        self.linear2 = L.Linear(4 * d, d, gen)
+        k = L.split(key, 5)
+        self.attn = MHA(d, k[0])
+        self.film = L.Linear(cfg.lan_embed_dim, 2 * d, k[1])
+        self.linear1 = L.Linear(d, 4 * d, k[2])
+        self.linear2 = L.Linear(4 * d, d, k[3])
         self.norm1 = L.Norm(d)
         self.norm2 = L.Norm(d)
 
 
 class ClapSep(nn.Module):
-    def __init__(self, cfg: ClapSepConfig = ClapSepConfig(), gen=None):
+    """Keys as the JAX ``clapsep_init``: one split handed out to the
+    encoder and decoder blocks, the embedding, the masker blocks and the
+    head, in that order."""
+
+    def __init__(self, cfg: ClapSepConfig = ClapSepConfig(), key=None):
         super().__init__()
         self.cfg = cfg
+        ki = iter(L.split(key, 4 + 2 * sum(cfg.depths) + cfg.n_masker_layer))
 
         def stage(depth):
-            return nn.ModuleList([Block(cfg, gen) for _ in range(depth)])
+            return nn.ModuleList([Block(cfg, next(ki)) for _ in range(depth)])
 
-        self.embed = L.Linear(cfg.bins, cfg.d_attn, gen)
-        self.encoder = nn.ModuleList([stage(d) for d in cfg.depths])
-        self.decoder = nn.ModuleList([stage(d) for d in cfg.depths[::-1]])
+        encoder = nn.ModuleList([stage(d) for d in cfg.depths])
+        decoder = nn.ModuleList([stage(d) for d in cfg.depths[::-1]])
+        self.embed = L.Linear(cfg.bins, cfg.d_attn, next(ki))
+        self.encoder, self.decoder = encoder, decoder
         self.masker = stage(cfg.n_masker_layer)
-        self.head = L.Linear(cfg.d_attn, cfg.bins, gen)
+        self.head = L.Linear(cfg.d_attn, cfg.bins, next(ki))
 
 
 def _block_apply(p: Block, x: torch.Tensor, query: torch.Tensor,

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from ..nn import core as L
+from ..nn import prng
 from ..nn.attention import MHA, mha
 from ..ops import dsp, fused_attn, fused_dconv, fused_enc
 from ..ops.select import Kernels, KernelSelection, resolve
@@ -67,14 +68,15 @@ HOP = 1024
 
 class DConvBlock(nn.Module):
     """demucs DConv block, ``Sequential(conv1, norm1, GELU, conv2, norm2,
-    GLU, LayerScale)``: parameters live at indices 0, 1, 3, 4, 6."""
+    GLU, LayerScale)``: parameters live at indices 0, 1, 3, 4, 6.  ``keys``
+    is the JAX ``dconv_init``'s ``(k1, k2)`` for the two convolutions."""
 
-    def __init__(self, channels: int, gen=None):
+    def __init__(self, channels: int, keys=(None, None)):
         super().__init__()
         hidden = channels // DCONV_COMPRESS
-        self.add_module("0", L.Conv1d(channels, hidden, 3, gen))
+        self.add_module("0", L.Conv1d(channels, hidden, 3, keys[0]))
         self.add_module("1", L.Norm(hidden))
-        self.add_module("3", L.Conv1d(hidden, 2 * channels, 1, gen))
+        self.add_module("3", L.Conv1d(hidden, 2 * channels, 1, keys[1]))
         self.add_module("4", L.Norm(2 * channels))
         self.add_module("6", L.LayerScale(channels, DCONV_INIT))
 
@@ -86,47 +88,62 @@ class DConvBlock(nn.Module):
 
 
 class DConv(nn.Module):
-    def __init__(self, channels: int, gen=None):
+    """The JAX ``dconv_init``: ``key, k1, k2 = split(key, 3)`` per block."""
+
+    def __init__(self, channels: int, key=None):
         super().__init__()
-        self.layers = nn.ModuleList(
-            [DConvBlock(channels, gen) for _ in range(DCONV_DEPTH)])
+        blocks = []
+        for _ in range(DCONV_DEPTH):
+            key, k1, k2 = L.split(key, 3)
+            blocks.append(DConvBlock(channels, (k1, k2)))
+        self.layers = nn.ModuleList(blocks)
 
 
 class HEncLayer(nn.Module):
-    def __init__(self, chin: int, chout: int, freq: bool, gen=None):
+    """The JAX ``henc_layer_init``: conv, rewrite, DConv from
+    ``split(key, 3)``."""
+
+    def __init__(self, chin: int, chout: int, freq: bool, key=None):
         super().__init__()
         self.freq = freq
+        k1, k2, k3 = L.split(key, 3)
         if freq:
-            self.conv = L.Conv2d(chin, chout, (KERNEL, 1), gen)
-            self.rewrite = L.Conv2d(chout, 2 * chout, (1, 1), gen)
+            self.conv = L.Conv2d(chin, chout, (KERNEL, 1), k1)
+            self.rewrite = L.Conv2d(chout, 2 * chout, (1, 1), k2)
         else:
-            self.conv = L.Conv1d(chin, chout, KERNEL, gen)
-            self.rewrite = L.Conv1d(chout, 2 * chout, 1, gen)
-        self.dconv = DConv(chout, gen)
+            self.conv = L.Conv1d(chin, chout, KERNEL, k1)
+            self.rewrite = L.Conv1d(chout, 2 * chout, 1, k2)
+        self.dconv = DConv(chout, k3)
 
 
 class HDecLayer(nn.Module):
     """Decoder layer: 3x3 (freq) or k=3 (time) rewrite + GLU, DConv, then
-    the stride-4 transposed conv (``hdec_layer_apply``)."""
+    the stride-4 transposed conv (``hdec_layer_apply``); keys as the JAX
+    ``hdec_layer_init``: conv_tr, rewrite, DConv from ``split(key, 3)``."""
 
-    def __init__(self, chin: int, chout: int, freq: bool, gen=None):
+    def __init__(self, chin: int, chout: int, freq: bool, key=None):
         super().__init__()
+        k1, k2, k3 = L.split(key, 3)
         if freq:
-            self.conv_tr = L.ConvTranspose2d(chin, chout, (KERNEL, 1), gen)
-            self.rewrite = L.Conv2d(chin, 2 * chin, (3, 3), gen)
+            self.conv_tr = L.ConvTranspose2d(chin, chout, (KERNEL, 1), k1)
+            self.rewrite = L.Conv2d(chin, 2 * chin, (3, 3), k2)
         else:
-            self.conv_tr = L.ConvTranspose1d(chin, chout, KERNEL, gen)
-            self.rewrite = L.Conv1d(chin, 2 * chin, 3, gen)
-        self.dconv = DConv(chin, gen)
+            self.conv_tr = L.ConvTranspose1d(chin, chout, KERNEL, k1)
+            self.rewrite = L.Conv1d(chin, 2 * chin, 3, k2)
+        self.dconv = DConv(chin, k3)
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, dim: int, cross: bool, ff: int, gen=None):
+    """The JAX ``_transformer_layer_init``: attention, linear1, linear2
+    from ``split(key, 3)``."""
+
+    def __init__(self, dim: int, cross: bool, ff: int, key=None):
         super().__init__()
         self.cross = cross
-        self.add_module("cross_attn" if cross else "self_attn", MHA(dim, gen))
-        self.linear1 = L.Linear(dim, ff, gen)
-        self.linear2 = L.Linear(ff, dim, gen)
+        k1, k2, k3 = L.split(key, 3)
+        self.add_module("cross_attn" if cross else "self_attn", MHA(dim, k1))
+        self.linear1 = L.Linear(dim, ff, k2)
+        self.linear2 = L.Linear(ff, dim, k3)
         self.norm1 = L.Norm(dim)
         self.norm2 = L.Norm(dim)
         self.norm_out = L.Norm(dim)
@@ -141,67 +158,80 @@ class TransformerLayer(nn.Module):
 
 
 class CrossTransformer(nn.Module):
+    """The JAX ``crosstransformer_init``: ``split(key, 2 * n_layers)``,
+    freq layer ``i`` from key ``2i``, time layer ``i`` from ``2i + 1``."""
+
     def __init__(self, dim: int = BOTTOM_CHANNELS, n_layers: int = T_LAYERS,
-                 ff: int | None = None, gen=None):
+                 ff: int | None = None, key=None):
         super().__init__()
         ff = ff if ff is not None else 4 * dim
+        keys = L.split(key, 2 * n_layers)
         self.norm_in = L.Norm(dim)
         self.norm_in_t = L.Norm(dim)
         layers, layers_t = [], []
         for idx in range(n_layers):
             cross = idx % 2 == 1
-            layers.append(TransformerLayer(dim, cross, ff, gen))
-            layers_t.append(TransformerLayer(dim, cross, ff, gen))
+            layers.append(TransformerLayer(dim, cross, ff, keys[2 * idx]))
+            layers_t.append(TransformerLayer(dim, cross, ff,
+                                             keys[2 * idx + 1]))
         self.layers = nn.ModuleList(layers)
         self.layers_t = nn.ModuleList(layers_t)
 
 
 class ScaledEmbedding(nn.Module):
-    def __init__(self, num: int, dim: int, gen=None):
+    def __init__(self, num: int, dim: int, key=None):
         super().__init__()
         self.embedding = L.Embedding(num, dim, None)
-        if gen is not None:
+        if key is not None:
             # smooth init: cumsum of normals down-weighted by sqrt(row + 1),
             # pre-divided by the output scale
-            w = torch.randn((num, dim), generator=gen)
-            w = w.cumsum(0) / torch.arange(1, num + 1).sqrt()[:, None]
-            self.embedding.weight.data.copy_(w / SCALED_EMB_SCALE)
+            w = prng.normal(key, (num, dim)).cumsum(0)
+            rows = torch.arange(1, num + 1, dtype=torch.float32,
+                                device=w.device)
+            self.embedding.weight.data = (w / rows.sqrt()[:, None]
+                                          / SCALED_EMB_SCALE)
 
 
 class HTDemucs(nn.Module):
     """The tower's parameters; ``channels``/``bottom_channels``/``t_layers``
-    build smaller family members with the same wiring (depth stays 4)."""
+    build smaller family members with the same wiring (depth stays 4).
+    ``key`` is consumed as the JAX ``htdemucs_init`` consumes it:
+    ``split(key, 4n + 7)`` handed out in order to the freq and time encoder
+    layers (level by level), the freq and time decoder layers, the
+    frequency embedding, the four channel samplers and the transformer."""
 
     def __init__(self, channels=tuple(CHANNELS),
                  bottom_channels: int = BOTTOM_CHANNELS,
-                 t_layers: int = T_LAYERS, gen=None):
+                 t_layers: int = T_LAYERS, key=None):
         super().__init__()
         channels = list(channels)
+        ki = iter(L.split(key, 4 * len(channels) + 7))
         enc, tenc, dec, tdec = [], [], [], []
         chin_f, chin_t = CAC_CHANNELS, AUDIO_CHANNELS
         for ch in channels:
-            enc.append(HEncLayer(chin_f, ch, True, gen))
-            tenc.append(HEncLayer(chin_t, ch, False, gen))
+            enc.append(HEncLayer(chin_f, ch, True, next(ki)))
+            tenc.append(HEncLayer(chin_t, ch, False, next(ki)))
             chin_f, chin_t = ch, ch
         n_src = len(SOURCES)
         douts_f = channels[-2::-1] + [n_src * CAC_CHANNELS]
         douts_t = channels[-2::-1] + [n_src * AUDIO_CHANNELS]
         dins = channels[::-1]
         for i in range(len(channels)):
-            dec.append(HDecLayer(dins[i], douts_f[i], True, gen))
-            tdec.append(HDecLayer(dins[i], douts_t[i], False, gen))
+            dec.append(HDecLayer(dins[i], douts_f[i], True, next(ki)))
+            tdec.append(HDecLayer(dins[i], douts_t[i], False, next(ki)))
         self.encoder = nn.ModuleList(enc)
         self.tencoder = nn.ModuleList(tenc)
         self.decoder = nn.ModuleList(dec)
         self.tdecoder = nn.ModuleList(tdec)
-        self.freq_emb = ScaledEmbedding(FREQ_EMB_DIM, channels[0], gen)
-        self.channel_upsampler = L.Conv1d(channels[-1], bottom_channels, 1, gen)
-        self.channel_downsampler = L.Conv1d(bottom_channels, channels[-1], 1, gen)
-        self.channel_upsampler_t = L.Conv1d(channels[-1], bottom_channels, 1, gen)
-        self.channel_downsampler_t = L.Conv1d(bottom_channels, channels[-1], 1,
-                                              gen)
+        self.freq_emb = ScaledEmbedding(FREQ_EMB_DIM, channels[0], next(ki))
+        top = channels[-1]
+        self.channel_upsampler = L.Conv1d(top, bottom_channels, 1, next(ki))
+        self.channel_downsampler = L.Conv1d(bottom_channels, top, 1, next(ki))
+        self.channel_upsampler_t = L.Conv1d(top, bottom_channels, 1, next(ki))
+        self.channel_downsampler_t = L.Conv1d(bottom_channels, top, 1,
+                                              next(ki))
         self.crosstransformer = CrossTransformer(bottom_channels, t_layers,
-                                                 gen=gen)
+                                                 key=next(ki))
 
 
 # ---------------------------------------------------------------------------

@@ -13,18 +13,25 @@ import math
 import torch
 from torch import nn
 
-from .core import Linear, _uniform
+from .core import Linear, _uniform, split
 
 
 class MHA(nn.Module):
-    def __init__(self, embed_dim: int, gen=None):
+    """The JAX ``mha_init``: ``k1, k2, _ = split(key, 3)``; xavier-uniform
+    packed in-projection from ``k1``, the out-projection's weight
+    U(-1/sqrt(E), 1/sqrt(E)) from ``k2``, zero biases."""
+
+    def __init__(self, embed_dim: int, key=None):
         super().__init__()
+        k1, k2, _ = split(key, 3)
         # torch applies xavier_uniform_ to the PACKED (3E, E) tensor
         bound = math.sqrt(6.0 / (4.0 * embed_dim))
-        self.in_proj_weight = _uniform((3 * embed_dim, embed_dim), bound, gen)
+        self.in_proj_weight = _uniform((3 * embed_dim, embed_dim), bound, k1)
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = Linear(embed_dim, embed_dim, gen)
-        if gen is not None:
+        self.out_proj = Linear(embed_dim, embed_dim)
+        if key is not None:
+            self.out_proj.weight = _uniform((embed_dim, embed_dim),
+                                            1.0 / math.sqrt(embed_dim), k2)
             nn.init.zeros_(self.out_proj.bias)
 
 

@@ -9,9 +9,13 @@ ConvTranspose ``(in, out, *k)``), so a JAX param pytree loads with
 weights are cast to the activation's dtype, norms take their statistics and
 affine in f32 and return the input's dtype, GELU is the exact erf form.
 
-Initialisation takes an explicit ``torch.Generator`` and draws from the same
-distributions as the JAX inits (not the same numbers).  ``gen=None`` leaves
-the storage uninitialised, for modules that are about to be loaded.
+Initialisation takes an explicit threefry key (``nn.prng``) and consumes it
+as the JAX init does: a Linear / conv layer splits it into ``(kw, kb)`` and
+draws each from ``jax.random.uniform``'s numbers, an embedding is a
+``jax.random.normal`` draw, so a layer built from a key equals the JAX
+layer built from the same key.  The draws land on the key's device.
+``key=None`` leaves the storage uninitialised, for modules that are about
+to be loaded.
 """
 
 from __future__ import annotations
@@ -25,12 +29,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import prng
 
-def _uniform(shape, bound: float, gen: torch.Generator | None) -> nn.Parameter:
-    t = torch.empty(shape, dtype=torch.float32)
-    if gen is not None:
-        t.uniform_(-bound, bound, generator=gen)
-    return nn.Parameter(t)
+
+def _uniform(shape, bound: float, key: prng.Key | None) -> nn.Parameter:
+    """U(-bound, bound) from ``key`` (``nn.core._uniform`` of the JAX
+    package); empty storage without a key."""
+    if key is None:
+        return nn.Parameter(torch.empty(shape, dtype=torch.float32))
+    return nn.Parameter(prng.uniform(key, shape, -bound, bound))
+
+
+def split(key: prng.Key | None, num: int = 2) -> list:
+    """``prng.split``, passing ``None`` (no draw) through as ``num`` Nones."""
+    return [None] * num if key is None else prng.split(key, num)
 
 
 def _full(shape, value: float) -> nn.Parameter:
@@ -41,47 +53,46 @@ def _full(shape, value: float) -> nn.Parameter:
 # Layers
 # ---------------------------------------------------------------------------
 
-class Linear(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, gen=None, bias: bool = True):
+class _Affine(nn.Module):
+    """A Linear / conv layer's ``weight`` and ``bias``, drawn as the JAX
+    ``*_init`` functions draw them: ``(kw, kb) = split(key)``, both
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+
+    def __init__(self, shape, n_out: int, fan_in: int, key, bias: bool = True):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_dim)
-        self.weight = _uniform((out_dim, in_dim), bound, gen)
-        self.bias = _uniform((out_dim,), bound, gen) if bias else None
+        kw, kb = split(key)
+        bound = 1.0 / math.sqrt(fan_in)
+        self.weight = _uniform(shape, bound, kw)
+        self.bias = _uniform((n_out,), bound, kb) if bias else None
 
 
-class Conv1d(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, gen=None):
-        super().__init__()
-        bound = 1.0 / math.sqrt(in_ch * kernel)
-        self.weight = _uniform((out_ch, in_ch, kernel), bound, gen)
-        self.bias = _uniform((out_ch,), bound, gen)
+class Linear(_Affine):
+    def __init__(self, in_dim: int, out_dim: int, key=None, bias: bool = True):
+        super().__init__((out_dim, in_dim), out_dim, in_dim, key, bias)
 
 
-class Conv2d(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int], gen=None):
-        super().__init__()
+class Conv1d(_Affine):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, key=None):
+        super().__init__((out_ch, in_ch, kernel), out_ch, in_ch * kernel, key)
+
+
+class Conv2d(_Affine):
+    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int], key=None):
         kh, kw = kernel
-        bound = 1.0 / math.sqrt(in_ch * kh * kw)
-        self.weight = _uniform((out_ch, in_ch, kh, kw), bound, gen)
-        self.bias = _uniform((out_ch,), bound, gen)
+        super().__init__((out_ch, in_ch, kh, kw), out_ch, in_ch * kh * kw, key)
 
 
-class ConvTranspose1d(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, gen=None):
-        super().__init__()
+class ConvTranspose1d(_Affine):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, key=None):
         # torch ConvTranspose fan_in = weight.size(1) * k = out_ch * k
-        bound = 1.0 / math.sqrt(out_ch * kernel)
-        self.weight = _uniform((in_ch, out_ch, kernel), bound, gen)
-        self.bias = _uniform((out_ch,), bound, gen)
+        super().__init__((in_ch, out_ch, kernel), out_ch, out_ch * kernel, key)
 
 
-class ConvTranspose2d(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int], gen=None):
-        super().__init__()
+class ConvTranspose2d(_Affine):
+    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int], key=None):
         kh, kw = kernel
-        bound = 1.0 / math.sqrt(out_ch * kh * kw)
-        self.weight = _uniform((in_ch, out_ch, kh, kw), bound, gen)
-        self.bias = _uniform((out_ch,), bound, gen)
+        super().__init__((in_ch, out_ch, kh, kw), out_ch, out_ch * kh * kw,
+                         key)
 
 
 class Norm(nn.Module):
@@ -102,12 +113,13 @@ class LayerScale(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num: int, dim: int, gen=None):
+    """A standard-normal table (the JAX ``embedding_init``)."""
+
+    def __init__(self, num: int, dim: int, key=None):
         super().__init__()
-        t = torch.empty((num, dim), dtype=torch.float32)
-        if gen is not None:
-            t.normal_(generator=gen)
-        self.weight = nn.Parameter(t)
+        self.weight = nn.Parameter(
+            torch.empty((num, dim), dtype=torch.float32) if key is None
+            else prng.normal(key, (num, dim)))
 
 
 # ---------------------------------------------------------------------------

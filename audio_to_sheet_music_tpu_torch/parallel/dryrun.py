@@ -72,18 +72,19 @@ def _rank_main(rank: int, world: int, tmp: str, fn: Callable,
     torch.save(out, Path(tmp) / f"rank{rank}.pt")
 
 
-def build_model(kind: str):
+def build_model(kind: str, device: str | torch.device = "cpu"):
     """``"tiny"``: ``atht.init_tiny(SEED)``; ``"full"``: ``atht.init(SEED)``
     (random head); ``"trained"``: ``atht.init(SEED)`` with the committed
-    trained head.  Every process that builds one gets the same weights."""
+    trained head; drawn on ``device``.  Every process that builds one gets
+    the same weights."""
     from ..models import atht
 
     if kind == "tiny":
-        return atht.init_tiny(SEED)
+        return atht.init_tiny(SEED, device=device)
     if kind == "full":
-        return atht.init(SEED)
+        return atht.init(SEED, device=device)
     if kind == "trained":
-        return atht.load_params(atht.init(SEED))
+        return atht.load_params(atht.init(SEED, device=device))
     raise ValueError(f"unknown model kind {kind!r}")
 
 
@@ -132,8 +133,8 @@ def _dp_rank(rank: int, world: int, init: str, devices: Sequence[str],
     init_data_parallel(device, rank, world, init, backend)
     try:
         b = batches[0]["mixture"].shape[0]
-        return _steps(build_model(kind), batches, device, compute_dtype,
-                      kernels, True, rank * b // world,
+        return _steps(build_model(kind, device), batches, device,
+                      compute_dtype, kernels, True, rank * b // world,
                       (rank + 1) * b // world)
     finally:
         dist.destroy_process_group()
@@ -159,7 +160,8 @@ def dp_step(world: int, batches: Sequence[Mapping[str, np.ndarray]],
     ranks = spawn_ranks(_dp_rank, world, devices, backend, kind,
                         list(batches), compute_dtype, kernels)
     t1 = time.perf_counter()
-    single = _steps(build_model(kind), batches, torch.device(devices[0]),
+    single = _steps(build_model(kind, devices[0]), batches,
+                    torch.device(devices[0]),
                     compute_dtype, kernels, False)
     dp = ranks[0]
     return {
@@ -220,7 +222,7 @@ def dryrun_multichip(n_devices: int, device: str = "cpu") -> Dict[str, Any]:
     seg_s, ov_s, song_t = (0.25, 0.05, 30000) if tiny else (6.0, 1.5, 529200)
     stage(f"stage 4/4: sweep with the chunk axis split over a "
           f"{n_devices}-entry mesh (segment {seg_s} s)")
-    model = build_model(kind)
+    model = build_model(kind, devices[0])
     kw = dict(segment_seconds=seg_s, overlap_seconds=ov_s,
               compute_dtype=None if cuda else torch.float32)
     sep = Separator(model, mesh=make_mesh(devices), **kw)

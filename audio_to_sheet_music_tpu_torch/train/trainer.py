@@ -119,14 +119,15 @@ def _subset(dataset: StemSegmentDataset, pct: float, seed: int = 0):
     return dataset
 
 
-def _default_model(cfg: Config) -> atht.AudioTextHTDemucs:
+def _default_model(cfg: Config, device: torch.device
+                   ) -> atht.AudioTextHTDemucs:
     """A reference ``.pt`` in ``training.resume_from``, converted (the model
     is then ``pretrained``), else the seeded init with the committed
-    trained head; at test size under ``ATSM_TINY_MODEL=1``
-    (``atht.load_from_env``)."""
+    trained head, drawn on ``device``; at test size under
+    ``ATSM_TINY_MODEL=1`` (``atht.load_from_env``)."""
     resume = cfg.training.resume_from
     pt = resume if resume and Path(resume).suffix == ".pt" else None
-    return atht.load_from_env(pt)
+    return atht.load_from_env(pt, device=device)
 
 
 def _train_loader(cfg: Config, tracks, tokenizer):
@@ -208,7 +209,7 @@ def train(cfg: Config, model: atht.AudioTextHTDemucs | None = None,
     out_dir = Path(cfg.wandb.output_dir)
     logger = MetricLogger(cfg, out_dir) if main else _NoLogger()
     if model is None:
-        model = _default_model(cfg)
+        model = _default_model(cfg, device)
     model = model.to(device)
     tokenizer = default_tokenizer(require_real=model.pretrained)
 

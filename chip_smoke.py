@@ -35,9 +35,13 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    its max and rms error against the stated tolerance, and CUDA-event times
    for the kernel, the plain version and a PyTorch library call (or
    composition) computing the same function.
-3. The full path: the full-width model (the port's seeded init, seed 0, with
-   the committed trained head grafted on) in a ``Separator`` on ``cuda``
-   with bf16 compute serves a seeded 60 s stereo song, all 4 stems, through
+3. The full path: the full-width model (``atht.init(0)`` drawn on the card,
+   the JAX package's ``atht.init(PRNGKey(0))``, with the committed trained
+   head grafted on) in a ``Separator`` on ``cuda``.  Before the graft, the
+   draw's seconds are printed and every leaf is held to the JAX package's
+   seed-0 fingerprint (``models/seed0_fingerprint.json``: count, f64 sum
+   and sum of squares, and the hash of every uniform leaf).  With bf16
+   compute it serves a seeded 60 s stereo song, all 4 stems, through
    ``separate_all_pcm``: once to warm up, then once with the kernels' launch
    counters set to 0 just before and read just after.  Then one 6 s chunk
    goes through ``forward_with_text_emb`` with the kernels and with the
@@ -63,11 +67,16 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    must run in the freq decoders (their launches: an opt-in forward's less
    its encode's).  The 16-chunk batch through ``htdemucs.forward`` under
    the default and opt-in selections must be within 1e-3 rms of the per-op
-   one.  Then ``cli benchmark`` on two synthetic 12 s tracks with the three
-   models ("ours", "ours-random", "htdemucs") under the default selection
-   and again per op: the results must have the reference schema, every
-   aggregate a number within the ±30 dB clamp, and each stem's SDR within
-   the loss-gap rule of the per-op one.
+   one.  Then ``cli benchmark --synthetic --synthetic-tracks 5 --models ours
+   ours-random htdemucs clapsep`` under the default selection, the command
+   that wrote the JAX package's ``results/synthetic/evaluation_results.json``
+   (on a TPU, bf16): every aggregate SDR and SI-SDR row (each stem and the
+   average) within 0.25 dB of that file's, and Ours above Ours-random on
+   every stem's SDR.  Then ``cli benchmark`` on two synthetic 12 s tracks
+   with "ours", "ours-random" and "htdemucs" per op: both runs must have
+   the reference schema, every aggregate a number within the ±30 dB clamp,
+   and each stem's SDR on those two tracks within the loss-gap rule of the
+   per-op one.
 
 6. The serving apps: ``apps.serve.build_separator(None, "config.yaml",
    device="cuda")`` (the same seeded towers and committed head; bf16; the
@@ -143,6 +152,15 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    that share ``cuda:0``, against the single-device step: head and loss
    within 1e-3.  Last, ``Separator.sweep_flops`` of the song and the
    tensor-core share it gives phase 3's wall.
+9. The learning proof (after phase 8; numbers under ``learning_proof``):
+   ``apps.learning_proof.run`` on the card, the port of the JAX
+   ``scripts/learning_proof.py``: the seed-0 full-width model with its
+   random head trains 240 default-selection steps of 8 x 6 s on 4
+   synthetic 24 s tracks, with the launch counters set to 0 just before
+   and read just after (``layer_tail`` and ``henc_freq_fused`` must run);
+   eval SDR on a held-out 12 s track before within 0.1 dB of the JAX
+   record's -4.37 dB, after at least +4.0 dB and at least +8 dB above
+   before (the JAX record: +6.10, +10.47); the steps/s.
 
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
@@ -171,6 +189,7 @@ from the path that runs it: the serving sweep for ``layer_tail`` and
 same numbers at the eval path's shapes, with ``eval_launches`` from its
 default sweep for the first two and its opt-in sweep for the others;
 ``stream_launches`` from phase 6's streaming request at ``block=auto``;
+``learn_launches`` from phase 9's training and evaluation;
 ``stream_*`` for ``layer_tail`` and ``henc_freq_fused`` the numbers at the
 stream's block shapes, means per launch over phase 6's two streams), and
 ``{"ok": true, "device": {...}}``.  The same numbers, with each form's and
@@ -700,10 +719,12 @@ def _henc_form(layer, b: int, t: int, weight: str, n: int,
     return row, x
 
 
-def _henc_layer(gen: torch.Generator):
+def _henc_layer():
     from audio_to_sheet_music_tpu_torch.models import htdemucs
+    from audio_to_sheet_music_tpu_torch.nn import prng
 
-    layer = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+    layer = htdemucs.HEncLayer(4, 48, freq=True,
+                               key=prng.PRNGKey(SEED, "cuda"))
     for blk in layer.dconv.layers:      # raise the 1e-3 LayerScale init
         blk.scale.scale.data.fill_(0.5)
     return layer.to("cuda").requires_grad_(False)
@@ -714,7 +735,7 @@ def check_henc(gen: torch.Generator, profile: bool) -> dict:
 
     print("henc_freq_fused (B, 4, 2048, T) -> C=48, bf16:")
     print(f"  tolerance: {HENC_TOL['reason']}")
-    layer = _henc_layer(gen)
+    layer = _henc_layer()
     group = "launches_per_group"
     forms, inputs = zip(_henc_form(layer, 4, 259, group, 1, gen),  # a group
                         _henc_form(layer, 1, 1292, group, 0, gen))  # 30 s
@@ -733,7 +754,7 @@ def check_henc(gen: torch.Generator, profile: bool) -> dict:
 
 def eval_henc(gen: torch.Generator) -> dict:
     print("henc_freq_fused, the eval path's form:")
-    row, _ = _henc_form(_henc_layer(gen), EVAL_B, EVAL_T,
+    row, _ = _henc_form(_henc_layer(), EVAL_B, EVAL_T,
                         "launches_per_forward", 1, gen)
     return _eval_entry([row], BF16_TENSOR_FLOPS)
 
@@ -783,11 +804,12 @@ def _dconv_rows(gen: torch.Generator, forms: list, t: int, weight: str
     """``dconv_rows`` against its plain version and the per-op DConv in
     each form ``(rows, C, launches)`` at ``t`` frames."""
     from audio_to_sheet_music_tpu_torch.models import htdemucs
+    from audio_to_sheet_music_tpu_torch.nn import prng
     from audio_to_sheet_music_tpu_torch.ops import fused_dconv
 
     rows_out, inputs = [], []
     for rows, c, n in forms:
-        d = htdemucs.DConv(c, gen)
+        d = htdemucs.DConv(c, prng.PRNGKey(SEED + c, "cuda"))
         for blk in d.layers:            # raise the 1e-3 LayerScale init
             blk.scale.scale.data.fill_(0.5)
             blk.norm1.bias.data.normal_(generator=gen)
@@ -1079,6 +1101,29 @@ def _song(rng: np.random.Generator) -> np.ndarray:
     return (tones + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
 
 
+def seed_fingerprint(model) -> dict:
+    """The seed-0 draw on the card against the JAX package's fingerprint
+    (``models/seed0_fingerprint.json``): every leaf's count and sums, and
+    the hash of every uniform one.  Fails on any difference."""
+    from audio_to_sheet_music_tpu_torch.models import fingerprint
+
+    t0 = time.perf_counter()
+    want = fingerprint.load()
+    bad = fingerprint.mismatches(fingerprint.fingerprint(model.state_dict()),
+                                 want)
+    check_s = time.perf_counter() - t0
+    n = sum(v["count"] for v in want.values())
+    hashed = sum("sha256" in v for v in want.values())
+    print(f"seed-{SEED} model drawn on the card against the JAX package's "
+          f"fingerprint: {len(want)} leaves ({hashed} hashed), {n} values, "
+          f"{len(bad)} differ ({check_s:.2f} s)")
+    if bad:
+        raise SmokeFailure(f"the seed-{SEED} draw is not the JAX model's: "
+                           f"{bad[:5]}")
+    return {"leaves": len(want), "hashed": hashed, "values": n,
+            "check_s": check_s}
+
+
 def run_path(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.infer.session import Separator
     from audio_to_sheet_music_tpu_torch.models import atht
@@ -1086,7 +1131,11 @@ def run_path(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import kernel_gate
 
     t0 = time.perf_counter()
-    model = atht.load_params(atht.init(SEED))          # + trained head
+    model = atht.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    seeded = seed_fingerprint(model)
+    atht.load_params(model)                             # + trained head
     sep = Separator(model, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1094,7 +1143,7 @@ def run_path(profile: bool) -> dict:
     if sep.compute_dtype != torch.bfloat16:
         raise SmokeFailure(f"compute dtype {sep.compute_dtype}, want bf16")
     print(f"full-width model on {sep.device} in {sep.compute_dtype}: set-up "
-          f"{setup_s:.2f} s")
+          f"{setup_s:.2f} s (the seed-{SEED} draw {draw_s:.3f} s)")
 
     rng = np.random.default_rng(SEED)
     song = _song(rng)
@@ -1144,6 +1193,7 @@ def run_path(profile: bool) -> dict:
         raise SmokeFailure("kernel path diverges from the per-op path")
     result = {"launches": launches, "warmup_s": warm_s, "wall_s": wall,
               "audio_sec_per_sec": rate, "setup_s": setup_s,
+              "draw_s": draw_s, "fingerprint": seeded,
               "peak_mem_gib": peak_gib, "path_rms": rms,
               "path_ref_rms": ref_rms, "stem_rms_lsb": stem_rms.tolist(),
               "gate": gate}
@@ -1255,7 +1305,7 @@ def run_training(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import losses as tlosses
     from audio_to_sheet_music_tpu_torch.train.trainer import put_batch, train
 
-    model = atht.load_params(atht.init(SEED)).to("cuda")   # + trained head
+    model = atht.load_params(atht.init(SEED, device="cuda"))  # + trained head
     towers = {k: v.detach().clone() for k, v in model.state_dict().items()
               if not k.startswith("head.")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -1383,10 +1433,19 @@ def run_training(profile: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 EVAL_SELECTIONS = ("default", "opt_in", "none")
-EVAL_TRACKS = 2                    # synthetic 12 s tracks for the benchmark
+EVAL_TRACKS = 2                    # synthetic 12 s tracks, per-op benchmark
 EVAL_MODELS = ("AudioTextHTDemucs (Ours)",
                "AudioTextHTDemucs (Ours, random head)",
                "HTDemucs (random init)")
+# the JAX package's committed results (its benchmark.py on a TPU, bf16):
+# the default benchmark reruns that command and holds each aggregate row
+# to it
+RESULTS = Path(__file__).resolve().parent / "results" / "synthetic" / \
+    "evaluation_results.json"
+RESULTS_TRACKS = 5
+RESULTS_MODELS = ("ours", "ours-random", "htdemucs", "clapsep")
+RESULTS_NAMES = EVAL_MODELS + ("CLAPSep (random init)",)
+RESULTS_TOL_DB = 0.25              # a stem's aggregate SDR or SI-SDR
 
 
 def _timed_sweep(base, song: np.ndarray) -> tuple:
@@ -1436,20 +1495,20 @@ def _decoder_dconv_launches(ht, chunks: torch.Tensor) -> dict:
 
 def _benchmark_cli(out_dir: Path, kernels: str,
                    models=("ours", "ours-random", "htdemucs"),
-                   names=EVAL_MODELS) -> dict:
-    """``cli benchmark`` on synthetic tracks with ``models`` (by default the
-    three of phase 5), whose results must be ``names``."""
+                   names=EVAL_MODELS, tracks: int = EVAL_TRACKS) -> dict:
+    """``cli benchmark`` on ``tracks`` synthetic tracks with ``models`` (by
+    default the three of phase 5), whose results must be ``names``."""
     from audio_to_sheet_music_tpu_torch import cli
 
     cli.main(["benchmark", "--synthetic", "--synthetic-tracks",
-              str(EVAL_TRACKS), "--models", *models,
+              str(tracks), "--models", *models,
               "--output-dir", str(out_dir), "--kernels", kernels])
     payload = json.loads((out_dir / "evaluation_results.json").read_text())
     if set(payload) != set(names):
         raise SmokeFailure(f"benchmark models {sorted(payload)}")
     for name, entry in payload.items():
         if (set(entry) != {"per_track", "aggregate"}
-                or len(entry["per_track"]) != EVAL_TRACKS
+                or len(entry["per_track"]) != tracks
                 or set(entry["aggregate"]) != {"sdr", "sisdr"}):
             raise SmokeFailure(f"{name}: results not in the reference schema")
         for metric, vals in entry["aggregate"].items():
@@ -1458,6 +1517,35 @@ def _benchmark_cli(out_dir: Path, kernels: str,
                 raise SmokeFailure(f"{name}: aggregate {metric} {vals} is "
                                    "not a number within the ±30 dB clamp")
     return payload
+
+
+def _against_results(payload: dict) -> dict:
+    """Every aggregate SDR and SI-SDR row (each stem and the average) of
+    ``payload`` against the JAX package's committed results within
+    ``RESULTS_TOL_DB``, and Ours above Ours-random on every stem's SDR.
+    Prints every row before it fails."""
+    want = json.loads(RESULTS.read_text())
+    rows, worst = {}, 0.0
+    for name in RESULTS_NAMES:
+        for metric in ("sdr", "sisdr"):
+            got = payload[name]["aggregate"][metric]
+            ref = want[name]["aggregate"][metric]
+            gaps = {k: got[k] - ref[k] for k in ref}
+            worst = max(worst, max(abs(g) for g in gaps.values()))
+            rows[f"{name} {metric}"] = {"port": got, "results": ref}
+            print(f"  {name} {metric}: " + ", ".join(
+                f"{k} {got[k]:.3f} ({gaps[k]:+.3f})" for k in ref))
+    ours = payload["AudioTextHTDemucs (Ours)"]["aggregate"]["sdr"]
+    rand = payload["AudioTextHTDemucs (Ours, random head)"]["aggregate"]["sdr"]
+    print(f"  largest gap to {RESULTS.name}: {worst:.3f} dB (limit "
+          f"{RESULTS_TOL_DB} dB)")
+    if not worst <= RESULTS_TOL_DB:
+        raise SmokeFailure(f"a benchmark row is {worst:.3f} dB from the JAX "
+                           f"package's results (limit {RESULTS_TOL_DB} dB)")
+    if not all(ours[s] > rand[s] for s in STEMS4):
+        raise SmokeFailure(f"Ours does not beat Ours-random on every stem: "
+                           f"{ours} against {rand}")
+    return {"worst_gap_db": worst, "limit_db": RESULTS_TOL_DB, "rows": rows}
 
 
 def _sdr_gaps(kernel: dict, per_op: dict, root: Path) -> dict:
@@ -1502,7 +1590,7 @@ def run_eval(profile: bool) -> dict:
     from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
 
     t0 = time.perf_counter()
-    model = atht.load_params(atht.init(SEED))          # + trained head
+    model = atht.load_params(atht.init(SEED, device="cuda"))  # + trained head
     bases = {sel: HTDemucsBaseline(model.htdemucs, EVAL_SECONDS, EVAL_OVERLAP,
                                    kernels=sel) for sel in EVAL_SELECTIONS}
     torch.cuda.synchronize()
@@ -1581,9 +1669,13 @@ def run_eval(profile: bool) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        runs = {sel: _benchmark_cli(root / sel, sel)
-                for sel in ("default", "none")}
+        runs = {"default": _benchmark_cli(
+                    root / "default", "default", RESULTS_MODELS,
+                    RESULTS_NAMES, RESULTS_TRACKS),
+                "none": _benchmark_cli(root / "none", "none")}
         result["benchmark_s"] = time.perf_counter() - t0
+        result["against_results"] = _against_results(runs["default"])
+        # the per-op run's tracks are the first EVAL_TRACKS of the default's
         result["sdr_gap"] = _sdr_gaps(runs["default"], runs["none"], root)
     result["benchmark"] = {sel: {name: entry["aggregate"]
                                  for name, entry in payload.items()}
@@ -1655,7 +1747,7 @@ def stream_kernels(blocks: dict, n_sep: int) -> dict:
     print(f"layer_tail and henc_freq_fused at phase 6's batches "
           f"(stream blocks {sorted(blocks)}, /api/separate {n_sep} chunks):")
     tails, hencs = [], []
-    layer = _henc_layer(gen)
+    layer = _henc_layer()
     for b, steps in sorted(sizes.items()):
         forms = [(name, l, s_, n * steps) for name, l, s_, n in LAYER_FORMS]
         rows, _ = _layer_tail_rows(gen, b, forms, weight)
@@ -1949,12 +2041,12 @@ def _pt_round_trip(card: str, model, song: np.ndarray, launches3: dict,
     export_atht_checkpoint(model, path, epoch=1, metrics={"val_sdr": 0.0})
     write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loaded = atht.load_params(atht.init(1), path)
+    loaded = atht.load_params(atht.init(1, device="cuda"), path)
     read_s = time.perf_counter() - t0
     size_mb = path.stat().st_size / 1e6
     want = model.state_dict()
     unequal = [k for k, v in loaded.state_dict().items()
-               if not torch.equal(v, want[k].cpu())]
+               if not torch.equal(v, want[k].to(v.device))]
     print(f".pt round trip at full width: {size_mb:.1f} MB, write "
           f"{write_s:.2f} s, read + convert {read_s:.2f} s, "
           f"{len(want)} tensors, unequal {len(unequal)}, pretrained "
@@ -1997,7 +2089,7 @@ def _pt_round_trip(card: str, model, song: np.ndarray, launches3: dict,
         cfg = _replace(_train_config(root), training={"resume_from": str(
             path)}, wandb={"checkpoint_dir": str(root / "ckpt_pt"),
                            "output_dir": str(root / "out_pt")})
-        trained = atht.load_params(atht.init(0), path)
+        trained = atht.load_params(atht.init(0, device="cuda"), path)
         t0 = time.perf_counter()
         res = trainer.train(cfg, model=trained, max_steps_per_epoch=2,
                             device="cuda")
@@ -2111,12 +2203,13 @@ def _loader_ab(model, root: Path) -> dict:
 def _clap_audio(card: str, text_tower, stems: np.ndarray) -> dict:
     """The full-width CLAP audio tower on the 4 stems, f32."""
     from audio_to_sheet_music_tpu_torch.models import clap, clap_audio
+    from audio_to_sheet_music_tpu_torch.nn import prng
     from audio_to_sheet_music_tpu_torch.ops import mel
     from audio_to_sheet_music_tpu_torch.text.prompts import STEM_NAMES
     from audio_to_sheet_music_tpu_torch.text.tokenizer import HashTokenizer
     from audio_to_sheet_music_tpu_torch.utils import audio_io
 
-    audio = clap_audio.ClapAudio(gen=torch.Generator().manual_seed(SEED))
+    audio = clap_audio.ClapAudio(key=prng.PRNGKey(SEED, "cuda"))
     model = clap.Clap(text_tower, audio).cuda()
     mono48 = audio_io.resample(stems.mean(axis=1), SAMPLE_RATE,
                                mel.SAMPLE_RATE)                  # (4, T)
@@ -2392,7 +2485,7 @@ def run_parallel_gate(card: str, path: dict, pcm3: np.ndarray) -> dict:
     t_phase = time.perf_counter()
     print(f"phase 8 on {card}")
     # phase 3's model as it was: phase 7 trained that one's head
-    model = atht.load_params(atht.init(SEED)).cuda()
+    model = atht.load_params(atht.init(SEED, device="cuda"))
     out = _gate_and_mesh(model, path, pcm3)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p8_") as tmp:
         t0 = time.perf_counter()
@@ -2546,6 +2639,54 @@ def _gate_and_mesh(model, path: dict, pcm3: np.ndarray) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the learning proof
+# ---------------------------------------------------------------------------
+
+LEARN_STEPS = 240
+# the JAX record (scripts/learning_proof.py, a TPU v5e): -4.37 -> +6.10 dB
+LEARN_BEFORE_DB, LEARN_BEFORE_TOL = -4.37, 0.1
+LEARN_AFTER_MIN_DB, LEARN_GAIN_MIN_DB = 4.0, 8.0
+
+
+def run_learning_proof(card: str) -> dict:
+    """``apps.learning_proof`` at full width: the seed-0 model with its
+    random head, 240 default-selection steps, eval SDR before and after,
+    with every launch counter set to 0 just before and read just after."""
+    import tempfile
+
+    from audio_to_sheet_music_tpu_torch.apps import learning_proof
+
+    t_phase = time.perf_counter()
+    print(f"phase 9 on {card}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p9_") as tmp:
+        _zero_counters()
+        res = learning_proof.run(steps=LEARN_STEPS, device="cuda",
+                                 data_dir=tmp)
+        launches = {k: v for k, v in _read_counters().items() if v}
+    res.update(launches=launches, phase_s=time.perf_counter() - t_phase)
+    print(f"  learning proof: {res['before_db']:.3f} -> {res['after_db']:.3f} "
+          f"dB ({res['improvement_db']:+.3f}) after {res['steps']} steps at "
+          f"{res['steps_per_s']:.2f} steps/s on {res['card']}; launches "
+          f"{launches}; phase 9 in {res['phase_s']:.1f} s")
+    if res["steps"] != LEARN_STEPS:
+        raise SmokeFailure(f"{res['steps']} steps, want {LEARN_STEPS}")
+    if not abs(res["before_db"] - LEARN_BEFORE_DB) <= LEARN_BEFORE_TOL:
+        raise SmokeFailure(f"before training {res['before_db']:.3f} dB, the "
+                           f"JAX record {LEARN_BEFORE_DB} +- "
+                           f"{LEARN_BEFORE_TOL}")
+    if not (res["after_db"] >= LEARN_AFTER_MIN_DB
+            and res["improvement_db"] >= LEARN_GAIN_MIN_DB):
+        raise SmokeFailure(f"after training {res['after_db']:.3f} dB "
+                           f"({res['improvement_db']:+.3f}): want >= "
+                           f"{LEARN_AFTER_MIN_DB} and >= +{LEARN_GAIN_MIN_DB}")
+    for name in ("layer_tail", "henc_freq_fused"):
+        if launches.get(name, 0) <= 0:
+            raise SmokeFailure(f"{name} was not launched by the learning "
+                               "proof")
+    return res
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -2590,6 +2731,7 @@ def main(argv: list) -> int:
         serving = run_serving(profile)
         slice9 = run_checkpoints_towers(card, model, stems, path["launches"])
         parallel = run_parallel_gate(card, path, pcm)
+        learning = run_learning_proof(card)
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
@@ -2600,6 +2742,7 @@ def main(argv: list) -> int:
             k["stream_launches"] = serving["stream"]["auto"]["launches"][
                 k["name"]]
             k.update(serving["kernels"].get(k["name"], {}))
+            k["learn_launches"] = learning["launches"].get(k["name"], 0)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2610,12 +2753,14 @@ def main(argv: list) -> int:
         {"card": card, "build_s": build_s, "compiled": compiled,
          "kernels": kernels, "path": path, "training": training,
          "eval": evaluation, "serving": serving,
-         "checkpoints_towers": slice9, "parallel_gate": parallel},
+         "checkpoints_towers": slice9, "parallel_gate": parallel,
+         "learning_proof": learning},
         indent=1, default=str))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms", "stream_launches")
+                         "bound_by", "library_ms", "stream_launches",
+                         "learn_launches")
                 or k.startswith(("eval_", "stream_"))
                 and not k.endswith("_forms")}
                for kern in kernels]

@@ -18,7 +18,8 @@ from audio_to_sheet_music_tpu_torch.utils import audio_io
 
 
 def test_separate_command_writes_one_wav_per_stem(tmp_path, monkeypatch):
-    monkeypatch.setattr(atht, "init", lambda seed: atht.init_tiny(seed))
+    monkeypatch.setattr(atht, "init", lambda seed, **kw: atht.init_tiny(
+        seed, **kw))
     monkeypatch.setattr(atht, "load_params", lambda model, ckpt: model)
     r = np.random.default_rng(0)
     pcm = (0.3 * r.standard_normal((30000, 2)) * 32767).clip(

@@ -295,7 +295,8 @@ def test_train_resume_from_pt_matches_jax(jax_pt, tmp_path, monkeypatch,
     path, _ = jax_pt
     monkeypatch.setenv("ATSM_TOKENIZER_DIR", str(vocab))
     monkeypatch.setattr(JA, "init", JA.init_tiny)
-    monkeypatch.setattr(TA, "init", lambda seed=0: TA.init_tiny(seed))
+    monkeypatch.setattr(TA, "init",
+                        lambda seed=0, **kw: TA.init_tiny(seed, **kw))
     data = tmp_path / "data"
     synthetic_tracks(2, seconds=1.0, cache_dir=data)
     raw = {"data": {"train_dir": str(data), "test_dir": str(data),

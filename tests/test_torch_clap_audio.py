@@ -113,7 +113,7 @@ def test_similarity_matches_jax(audio_params, port_audio, feats):
               "logit_scale_t": np.float32(2.1),
               "logit_scale_a": np.float32(2.9)}
     model = TC.Clap(TCT.ClapText(num_layers=2, hidden=128),
-                    TCA.ClapAudio(gen=None))
+                    TCA.ClapAudio(key=None))
     model.load_state_dict(jax_params.state_dict_from_params(params),
                           strict=True)
     ids = np.array([[0, 7, 2, 1], [0, 9, 11, 2], [0, 5, 6, 2]], np.int32)

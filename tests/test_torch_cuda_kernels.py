@@ -34,10 +34,13 @@ import pytest
 import torch
 
 from audio_to_sheet_music_tpu_torch.models import htdemucs
+from audio_to_sheet_music_tpu_torch.nn import prng
 from audio_to_sheet_music_tpu_torch.ops import (fused_attn, fused_dconv,
                                                 fused_enc, fused_stft)
 
 pytestmark = pytest.mark.cuda
+# the seeded modules' key (drawn on the CPU, moved to the card)
+KEY = prng.PRNGKey(0)
 
 
 @pytest.fixture
@@ -133,7 +136,7 @@ def test_layer_tail_refuses_f32_on_the_card(gen):
     (2, 4, 40, 64, 65),          # C off the 16-column tile and the pair slice
 ])
 def test_henc_matches_plain(gen, b, cin, c, f, t):
-    layer = htdemucs.HEncLayer(cin, c, freq=True, gen=gen)
+    layer = htdemucs.HEncLayer(cin, c, freq=True, key=KEY)
     for blk in layer.dconv.layers:
         blk.scale.scale.data.fill_(0.5)
     layer = layer.cuda()
@@ -149,7 +152,7 @@ def test_henc_matches_plain(gen, b, cin, c, f, t):
 
 
 def test_henc_refuses_a_strided_input(gen):
-    layer = htdemucs.HEncLayer(4, 16, freq=True, gen=gen).cuda()
+    layer = htdemucs.HEncLayer(4, 16, freq=True, key=KEY).cuda()
     x = torch.randn((1, 4, 32, 20), device="cuda",
                     dtype=torch.bfloat16).transpose(2, 3)
     with pytest.raises(ValueError), torch.no_grad():
@@ -159,7 +162,7 @@ def test_henc_refuses_a_strided_input(gen):
 @pytest.mark.parametrize("b,t", [(1, 1300), (2, 1077)])
 def test_henc_takes_chunks_past_25_seconds(gen, b, t):
     """T > 1076 frames: the first design's shared-memory limit is gone."""
-    layer = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+    layer = htdemucs.HEncLayer(4, 48, freq=True, key=KEY)
     for blk in layer.dconv.layers:
         blk.scale.scale.data.fill_(0.5)
     layer = layer.cuda()
@@ -190,12 +193,12 @@ def _narrow_model(seed: int = 0):
     narrowest model whose transformer layers route to ``layer_tail``."""
     from audio_to_sheet_music_tpu_torch.models import atht, clap_text
 
-    g = torch.Generator().manual_seed(seed)
+    k1, k2, k3 = prng.split(prng.PRNGKey(seed), 3)
     return atht.AudioTextHTDemucs(
         htdemucs.HTDemucs(channels=(8, 16, 24, 32), bottom_channels=512,
-                          t_layers=2, gen=g),
-        clap_text.ClapText(num_layers=2, hidden=128, gen=g),
-        atht.Head(decoder_channels=(32, 16, 8, 8, 4), gen=g))
+                          t_layers=2, key=k1),
+        clap_text.ClapText(num_layers=2, hidden=128, key=k2),
+        atht.Head(decoder_channels=(32, 16, 8, 8, 4), key=k3))
 
 
 @pytest.mark.parametrize("block", [1, 3])
@@ -262,7 +265,7 @@ def test_separate_stream_on_the_card_runs_the_kernels(gen):
 
 
 def _dconv(c, gen):
-    d = htdemucs.DConv(c, gen)
+    d = htdemucs.DConv(c, KEY)
     for blk in d.layers:
         blk.scale.scale.data.fill_(0.5)
         blk.norm1.bias.data.normal_(generator=gen)
@@ -304,7 +307,7 @@ def test_libraries_pad_the_hidden_as_the_tiling_model(gen, c):
 def test_henc_at_the_widest_channels(gen):
     """C = MAX_CHANNELS runs the DConv routine at its widest rows."""
     c = fused_dconv.MAX_CHANNELS
-    layer = htdemucs.HEncLayer(4, c, freq=True, gen=gen)
+    layer = htdemucs.HEncLayer(4, c, freq=True, key=KEY)
     for blk in layer.dconv.layers:
         blk.scale.scale.data.fill_(0.5)
         blk.norm1.bias.data.normal_(generator=gen)
@@ -325,7 +328,7 @@ def test_dconv_routine_refuses_rows_wider_than_it_holds(gen):
     x = torch.randn((2, c, 40), generator=gen).to("cuda", torch.bfloat16)
     with pytest.raises(ValueError, match="at most"), torch.no_grad():
         fused_dconv.dconv_rows(d, x)
-    layer = htdemucs.HEncLayer(4, c, freq=True, gen=gen).cuda()
+    layer = htdemucs.HEncLayer(4, c, freq=True, key=KEY).cuda()
     x = torch.randn((1, 4, 32, 40), generator=gen).to("cuda", torch.bfloat16)
     with pytest.raises(ValueError, match="at most"), torch.no_grad():
         fused_enc.henc_freq_fused(layer, x)
@@ -342,7 +345,7 @@ def test_dconv_routine_in_place_is_repeatable(gen, which):
         x = torch.randn((5, 96, 301), generator=gen).to("cuda", torch.bfloat16)
         fn, plain = fused_dconv.dconv_rows, fused_dconv.dconv_rows_plain
     else:
-        mod = htdemucs.HEncLayer(4, 48, freq=True, gen=gen)
+        mod = htdemucs.HEncLayer(4, 48, freq=True, key=KEY)
         for blk in mod.dconv.layers:
             blk.scale.scale.data.fill_(0.5)
             blk.norm1.bias.data.normal_(generator=gen)
@@ -387,7 +390,7 @@ def test_htdemucs_forward_with_kernels_matches_per_op(gen, kernels, used):
            "henc_freq_fused": fused_enc.henc_freq_fused,
            "dconv_rows": fused_dconv.dconv_rows, "stft": fused_stft.stft}
     ht = htdemucs.HTDemucs(channels=(8, 16, 24, 32), bottom_channels=64,
-                           t_layers=2, gen=gen).cuda().requires_grad_(False)
+                           t_layers=2, key=KEY).cuda().requires_grad_(False)
     mix = (0.1 * torch.randn((2, 2, 343980), generator=gen)).cuda()
     before = {k: f.launches for k, f in fns.items()}
     with torch.inference_mode():
@@ -451,7 +454,7 @@ def test_stft_matches_plain(gen, rows, n_fft, hop, frames):
 
 
 def test_kernels_refuse_inputs_that_require_grad(gen):
-    layer = htdemucs.HEncLayer(4, 16, freq=True, gen=gen).cuda()
+    layer = htdemucs.HEncLayer(4, 16, freq=True, key=KEY).cuda()
     layer.requires_grad_(True)
     x = torch.randn((1, 4, 32, 20), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="requires grad"):
@@ -495,7 +498,7 @@ def test_kernels_launch_on_their_inputs_card(gen):
     with torch.cuda.device(first):
         layer = _layer_args(2, 100, 80, 512, 2048, gen)
         block = _block_args(2, 100, 80, 512, gen)
-        enc = htdemucs.HEncLayer(4, 48, freq=True, gen=gen).cuda()
+        enc = htdemucs.HEncLayer(4, 48, freq=True, key=KEY).cuda()
         xe = torch.randn((1, 4, 256, 70), generator=gen).to(
             "cuda", torch.bfloat16)
         dconv = _dconv(96, gen)
@@ -567,12 +570,12 @@ def test_parity_gate_reads_its_kernel_pass_on_the_card(gen, monkeypatch):
                                           torch.bfloat16)
     assert res is not None and res["ok"] and "skipped" not in res
     assert res["launches"].get("layer_tail", 0) > 0
-    g = torch.Generator().manual_seed(0)
+    k1, k2, k3 = prng.split(KEY, 3)
     narrow = atht.AudioTextHTDemucs(
         htdemucs.HTDemucs(channels=(12, 20, 28, 36), bottom_channels=96,
-                          t_layers=2, gen=g),
-        clap_text.ClapText(num_layers=2, hidden=128, gen=g),
-        atht.Head(decoder_channels=(36, 20, 12, 12, 4), gen=g)).cuda()
+                          t_layers=2, key=k1),
+        clap_text.ClapText(num_layers=2, hidden=128, key=k2),
+        atht.Head(decoder_channels=(36, 20, 12, 12, 4), key=k3)).cuda()
     monkeypatch.setattr(kernel_gate, "_RESULTS", {})
     assert kernel_gate.ensure_layer_parity(narrow, torch.bfloat16) is None
     res = kernel_gate.last_result()

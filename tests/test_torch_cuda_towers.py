@@ -11,6 +11,8 @@ On a machine with one, run them without the JAX test configuration:
   within 1e-4 of max|ref|, batch 2, and the mel front end within 1e-3 dB.
 - ``CLAPSepModel`` at ``TINY`` width on ``cuda`` against the CPU within
   1e-4 of the peak, and a full-width 10 s chunk within 1e-4 of rms(ref).
+- The seeded init drawn on the card equals the one drawn on the CPU: the
+  uniform leaves bit for bit, the normal ones within ``NORMAL_RTOL``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch
 
 from audio_to_sheet_music_tpu_torch.data import native_loader, synthetic_tracks
 from audio_to_sheet_music_tpu_torch.eval.models import CLAPSepModel
-from audio_to_sheet_music_tpu_torch.models import clap_audio, clap_text, clapsep
+from audio_to_sheet_music_tpu_torch.models import (atht, clap_audio, clap_text,
+                                                   clapsep, fingerprint)
+from audio_to_sheet_music_tpu_torch.nn import prng
 from audio_to_sheet_music_tpu_torch.ops import mel
 from audio_to_sheet_music_tpu_torch.text.tokenizer import HashTokenizer
 from audio_to_sheet_music_tpu_torch.train.trainer import put_batch
@@ -54,7 +58,7 @@ def test_segment_loader_on_the_card_host(card, tmp_path):
 
 @torch.no_grad()
 def test_clap_audio_on_the_card(card):
-    model = clap_audio.ClapAudio(gen=torch.Generator().manual_seed(0))
+    model = clap_audio.ClapAudio(key=prng.PRNGKey(0))
     wav = (0.2 * np.random.default_rng(0).standard_normal(4 * 48000)
            ).astype(np.float32)
     f_cpu = mel.prepare_input_features(wav, device="cpu")
@@ -69,7 +73,7 @@ def test_clap_audio_on_the_card(card):
 @torch.no_grad()
 def test_clapsep_on_the_card(card):
     clap = clap_text.ClapText(num_layers=2, hidden=128,
-                              gen=torch.Generator().manual_seed(1))
+                              key=prng.PRNGKey(1))
     kw = dict(cfg=clapsep.TINY, tokenizer=HashTokenizer(), chunk_seconds=0.5,
               overlap_seconds=0.05)
     on_cpu = CLAPSepModel(clap=clap, device="cpu", **kw)
@@ -83,7 +87,7 @@ def test_clapsep_on_the_card(card):
     got = on_card.separate(song, "bass")
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
-    full = clapsep.ClapSep(gen=torch.Generator().manual_seed(0))
+    full = clapsep.ClapSep(key=prng.PRNGKey(0))
     r = np.random.default_rng(3)
     wav = torch.from_numpy((0.1 * r.standard_normal((1, 320000))
                             ).astype(np.float32))
@@ -94,3 +98,18 @@ def test_clapsep_on_the_card(card):
                           en.to(card)).cpu()
     rms = (got - ref).pow(2).mean().sqrt()
     assert rms <= 1e-4 * ref.pow(2).mean().sqrt()
+
+
+def test_seeded_draw_on_the_card_matches_the_cpu(card):
+    on_card = atht.init_tiny(7, device=card).state_dict()
+    on_cpu = atht.init_tiny(7).state_dict()
+    for k, want in on_cpu.items():
+        got = on_card[k]
+        assert got.device.type == "cuda", k
+        if k in fingerprint.NORMAL_LEAVES:
+            torch.testing.assert_close(got.cpu(), want, rtol=prng.NORMAL_RTOL,
+                                       atol=prng.NORMAL_RTOL
+                                       * float(want.abs().max()))
+        else:
+            assert torch.equal(got.cpu(), want), k
+

@@ -355,5 +355,7 @@ def test_init_from_env(monkeypatch):
     tiny = TA.init_from_env(0)
     assert tiny.htdemucs.channel_upsampler.weight.shape[0] == 64
     monkeypatch.delenv("ATSM_TINY_MODEL")
-    monkeypatch.setattr(TA, "init", lambda seed: ("init", seed))
-    assert TA.init_from_env(3) == ("init", 3)
+    monkeypatch.setattr(TA, "init",
+                        lambda seed, device: ("init", seed, device))
+    assert TA.init_from_env(3) == ("init", 3, "cpu")
+    assert TA.init_from_env(3, "cuda") == ("init", 3, "cuda")

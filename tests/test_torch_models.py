@@ -28,6 +28,7 @@ from audio_to_sheet_music_tpu_torch.convert import jax_params
 from audio_to_sheet_music_tpu_torch.models import atht as TA
 from audio_to_sheet_music_tpu_torch.models import htdemucs as TH
 from audio_to_sheet_music_tpu_torch.ops import dsp as TD
+from audio_to_sheet_music_tpu_torch.nn import prng
 
 LAYER, TRANSFORMER, TOWER = 1e-5, 2e-5, 1e-3
 
@@ -189,7 +190,7 @@ def test_trained_head_graft_matches_jax_loader():
                                load_params_npz(TA.DEFAULT_HEAD, template))
     want = {k[len("head."):]: v for k, v in
             export_torch_names({"head": head_params}).items()}
-    head = TA.Head(gen=None)
+    head = TA.Head(key=None)
     model = TA.AudioTextHTDemucs(TH.HTDemucs(channels=(8, 16, 24, 32),
                                              bottom_channels=64, t_layers=2),
                                  torch.nn.Module(), head)
@@ -256,10 +257,11 @@ def test_layer_selection_routes_by_the_kernels_widths(monkeypatch, dim, ff,
     g = torch.Generator().manual_seed(0)
     x = torch.randn((1, 5, dim), generator=g)
     mem = torch.randn((1, 7, dim), generator=g)
+    k1, k2 = prng.split(prng.PRNGKey(0))
     with torch.inference_mode():
-        TH._self_layer_apply(TH.TransformerLayer(dim, False, ff, g), x,
+        TH._self_layer_apply(TH.TransformerLayer(dim, False, ff, k1), x,
                              "default")
-        TH._cross_layer_apply(TH.TransformerLayer(dim, True, ff, g), x, mem,
+        TH._cross_layer_apply(TH.TransformerLayer(dim, True, ff, k2), x, mem,
                               "default")
     assert calls == (["fused_self_layer", "fused_cross_layer"] if fused
                      else [])

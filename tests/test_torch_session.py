@@ -83,6 +83,39 @@ def test_separate_all_matches_jax(separators, song):
                                    rtol=0)
 
 
+def test_separate_all_within_one_step_of_the_jax_default(separators, song):
+    """The JAX default wire is pcm16: its ``separate_all`` returns the
+    stems quantised against one scale shared by every stem and channel.
+    The port returns exact f32.  The gap is the wire's rounding (half a
+    step) plus the two packages' f32 difference, which on this song
+    reaches 0.94 of a step at a few samples (the CaC divide above; the f32
+    test holds it to 1e-4 of the peak).  So all but 0.5 % of the samples
+    lie within one step of the shared scale and every sample within 1.5."""
+    port, jf32, jpcm = separators
+    assert jpcm.wire_pcm16
+    got = port.separate_all(song, stems=STEMS)
+    want = jpcm.separate_all(song, stems=STEMS)
+    exact = jf32.separate_all(song, stems=STEMS)
+    step = max(np.abs(w).max() for w in want.values()) / 32767.0
+    for stem in STEMS:
+        assert got[stem].dtype == np.float32
+        # the JAX default is its f32 stems rounded on the shared scale
+        assert np.abs(exact[stem] - want[stem]).max() <= 0.51 * step
+        diff = np.abs(got[stem] - want[stem])
+        assert diff.max() <= 1.5 * step, diff.max() / step
+        assert np.mean(diff > step) < 5e-3, np.mean(diff > step)
+
+
+@pytest.mark.parametrize("wire", ["pcm16", np.float16, "bfloat16x"])
+def test_other_wire_dtypes_are_refused(separators, wire):
+    port, _, _ = separators
+    assert port.wire_dtype == np.float32
+    assert Separator(port.model, device="cpu", wire_dtype="float32",
+                     **KW).wire_dtype == np.float32
+    with pytest.raises(ValueError, match="wire_dtype"):
+        Separator(port.model, device="cpu", wire_dtype=wire, **KW)
+
+
 def test_separate_matches_separate_all(separators, song):
     port, _, _ = separators
     one = port.separate(song[:, :30000], "bass")

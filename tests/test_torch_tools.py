@@ -44,7 +44,8 @@ PNG = b"\x89PNG\r\n\x1a\n"
 def tiny(monkeypatch):
     """The commands build the tiny model with its random head."""
     monkeypatch.setenv("ATSM_TINY_MODEL", "1")
-    monkeypatch.setattr(atht, "init", lambda seed=0: atht.init_tiny(seed))
+    monkeypatch.setattr(atht, "init",
+                        lambda seed=0, **kw: atht.init_tiny(seed, **kw))
     monkeypatch.setattr(atht, "load_params", lambda model, ckpt=None: model)
 
 

@@ -353,7 +353,7 @@ def test_saved_head_loads_in_the_jax_package(tmp_path):
 
 
 def test_committed_head_loads_through_load_params_npz():
-    head = TA.Head(gen=None)
+    head = TA.Head(key=None)
     TCK.load_params_npz(TA.DEFAULT_HEAD, head)
     with np.load(TA.DEFAULT_HEAD) as data:
         for k, v in head.state_dict().items():
