@@ -17,6 +17,7 @@ stays on the song's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -57,13 +58,26 @@ def plan_chunks(length: int, segment: int, overlap: int,
 
 def fade_weights(segment: int, overlap: int, device=None) -> torch.Tensor:
     """Ones with linear fade-in/out over ``overlap`` samples, composed as
-    ``min(fade_in, fade_out)`` so long overlaps give a symmetric triangle."""
+    ``min(fade_in, fade_out)`` so long overlaps give a symmetric triangle.
+
+    One tensor per ``(segment, overlap, device)``, kept as
+    ``nn.core._lerp_src`` keeps its taps: a host-to-device copy on every
+    call would make the host wait for the card, and cannot be captured in a
+    CUDA graph (``infer.programs``).  Made outside inference mode, so
+    training can use it too.  Callers must not write into it."""
+    return _fade_weights(segment, overlap, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=64)
+def _fade_weights(segment: int, overlap: int, device: torch.device
+                  ) -> torch.Tensor:
     w = np.ones(segment, np.float32)
     if overlap > 1:
         ramp = np.linspace(0.0, 1.0, overlap, dtype=np.float32)
         w[:overlap] = np.minimum(w[:overlap], ramp)
         w[segment - overlap:] = np.minimum(w[segment - overlap:], ramp[::-1])
-    return torch.from_numpy(w).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(w).to(device)
 
 
 def frame_song(x: torch.Tensor, grid: ChunkGrid, padded: bool = False

@@ -30,9 +30,27 @@ overlap-add, the carry and the int16 pass stay on the first device.
 Construction runs the kernel parity gate (``ops.kernel_gate``) on each
 distinct device, once per selection and device in a process.
 
-The JAX package caches one jitted program per chunk geometry; eager
-PyTorch has nothing to cache, so every sweep above goes through the same
-``_heads``.
+Like the JAX package's ``_sweep_cache`` of jitted programs, the
+``Separator`` keeps one program per chunk geometry (``infer.programs``):
+``_group``, ``_stream_block`` and ``_sweep_body`` are the eager functions,
+captured once as a CUDA graph each on a card and replayed from then on.
+The keys are the JAX keys, ``("group", g, segment, hop, n_stems)``,
+``("stream", block_chunks, segment, hop, n_stems)`` and ``(n_chunks,
+segment, hop, n_stems)``, plus the kernel selection's name, the song's
+dtype and ``deterministic``.  ``scale``, a group's ``start`` and the song's
+``length`` are inputs, as the JAX programs trace them, so one program
+serves every song of its geometry.  Inputs come from pinned host memory
+(``_stage``, ``_scalar``) or from other device tensors, so a warm
+``separate_all_pcm`` launches no kernel from the host and never waits for
+the card before its last copy.  A program's outputs are rewritten by the
+next replay: every caller copies what it keeps first (``separate_all_pcm``
+clones each group's PCM before its copy to the host; ``_sweep`` copies
+the stems to the host, a copy of their own on the CPU too).  The JAX
+cache keeps every program; here a graph's pool keeps its memory for the
+graph's lifetime, so a ``Separator`` keeps at most ``SWEEP_PROGRAMS``
+whole-song programs, whose key follows the song's length, and drops the
+least recently used.  A ``Separator`` with a mesh of several slices runs
+the same functions eagerly.
 
 One deliberate difference from the JAX ``Separator``: that one defaults to
 ``wire_dtype="pcm16"``, so its ``separate`` and ``separate_all`` quantise
@@ -59,21 +77,25 @@ in the same process keep cuDNN's free choice of algorithms.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from collections import Counter
-from typing import Dict, Iterator, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import atht
-from ..ops import kernel_gate
+from ..ops import kernel_gate, select
 from ..ops.select import NONE, Kernels, resolve
 from ..parallel import mesh as meshlib
 from ..text.prompts import STEM_NAMES
 from ..text.tokenizer import default_tokenizer
-from . import chunked
+from . import chunked, programs
 
 SAMPLE_RATE = 44100
+# whole-song programs a Separator keeps, the least recently used dropped
+# first; the group and stream programs are bounded by their schedules
+SWEEP_PROGRAMS = 4
 
 
 def set_precision_flags() -> None:
@@ -196,6 +218,13 @@ class Separator:
         self.kernels = resolve(kernels)
         self.deterministic = deterministic
         self._emb_cache: Dict[str, torch.Tensor] = {}
+        self._stems_cache: Dict[Tuple[str, ...], torch.Tensor] = {}
+        self._zeros_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
+        # one program per chunk geometry (the JAX ``_sweep_cache``), all in
+        # one graph memory pool on a card
+        self._programs: Dict[tuple, programs.Program] = {}
+        self._pool = None
+        self._copy_stream = None
         for replica in self._replicas.values():
             kernel_gate.ensure_layer_parity(replica, self.compute_dtype,
                                             kernels=self.kernels)
@@ -214,7 +243,13 @@ class Separator:
         return self._emb_cache[prompt]
 
     def _stem_embs(self, stems: Sequence[str]) -> torch.Tensor:
-        return torch.stack([self.text_embedding(s) for s in stems])
+        """(S, 512) embeddings of ``stems`` on the device, kept per stem
+        list (a program's input: a warm sweep launches no stack)."""
+        key = tuple(stems)
+        if key not in self._stems_cache:
+            self._stems_cache[key] = torch.stack(
+                [self.text_embedding(s) for s in stems])
+        return self._stems_cache[key]
 
     # -- chunk programs -------------------------------------------------------
 
@@ -246,32 +281,113 @@ class Separator:
                     b_, s_ * c_, l_).to(self.device, non_blocking=True))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-    def _upload(self, mixture: np.ndarray) -> torch.Tensor:
-        song = np.ascontiguousarray(mixture)
+    # -- programs -------------------------------------------------------------
+
+    def _stage(self, song: np.ndarray, width: int | None = None
+               ) -> torch.Tensor:
+        """A host song (int16 stays, anything else becomes f32) as a host
+        tensor zero-padded on the right to ``width`` samples, in pinned
+        memory for a card: a program's input copies from it without the
+        host waiting (a pageable copy makes it wait)."""
+        song = np.asarray(song)
         if song.dtype not in (np.int16, np.float32):
             song = song.astype(np.float32)
-        return torch.from_numpy(song).to(self.device)
+        n = song.shape[-1]
+        width = n if width is None else width
+        dtype = torch.int16 if song.dtype == np.int16 else torch.float32
+        out = torch.empty((*song.shape[:-1], width), dtype=dtype,
+                          pin_memory=self.device.type == "cuda")
+        out[..., :n] = torch.from_numpy(song)
+        out[..., n:] = 0
+        return out
+
+    def _scalar(self, value, dtype: torch.dtype) -> torch.Tensor:
+        """A 0-d host tensor (pinned for a card): a program's scalar
+        input."""
+        out = torch.empty((), dtype=dtype,
+                          pin_memory=self.device.type == "cuda")
+        out.fill_(value)
+        return out
+
+    def _zeros(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Zeros of ``shape`` on the device, kept per shape: the first
+        group's carry, copied from here into a program's input."""
+        if shape not in self._zeros_cache:
+            self._zeros_cache[shape] = torch.zeros(shape, device=self.device)
+        return self._zeros_cache[shape]
+
+    def _key(self, *geometry, song: torch.Tensor) -> tuple:
+        """A program's key: the JAX ``_sweep_cache`` key (``geometry``),
+        then the kernel selection, the song's dtype and ``deterministic``."""
+        return (*geometry, select.name(self.kernels),
+                str(song.dtype).removeprefix("torch."), self.deterministic)
+
+    def _run(self, key: tuple, fn: Callable, *args: torch.Tensor):
+        """``fn(*args)`` through the program kept under ``key``, made (on a
+        card: captured) at the key's first call.  ``args`` are host tensors
+        from ``_stage`` / ``_scalar`` or device tensors.  On a mesh of
+        several slices ``fn`` runs eagerly on the arguments moved to the
+        device."""
+        if self._slices.size > 1:
+            return fn(*(a.to(self.device, non_blocking=True) for a in args))
+        prog = self._programs.pop(key, None)        # reinserted: most recent
+        if prog is None:
+            if isinstance(key[0], int):
+                self._evict_sweeps(SWEEP_PROGRAMS - 1)
+            if self.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = programs.Program(fn, args, self.device, self._pool)
+        self._programs[key] = prog
+        return prog(*args)
+
+    def _evict_sweeps(self, keep: int) -> None:
+        """Drop all but the ``keep`` most recently used whole-song
+        programs: their graphs and static buffers go back to the pool,
+        where the next capture reuses them.  The song's length picks a
+        whole-song program, so without a bound a server that sees songs of
+        many lengths would keep one program for each."""
+        sweeps = [k for k in self._programs if isinstance(k[0], int)]
+        for key in sweeps[:max(0, len(sweeps) - keep)]:
+            del self._programs[key]
 
     # -- separation ---------------------------------------------------------
 
     @torch.inference_mode()
-    def _sweep_on_device(self, mixture: np.ndarray, embs: torch.Tensor
-                         ) -> torch.Tensor:
-        """Whole-song sweep -> (S*2, T) float32 on the device."""
-        length = int(np.shape(mixture)[-1])
-        grid = chunked.plan_chunks(length, self.segment, self.overlap,
-                                   self.bucket)
-        song = _to_float_song(self._upload(mixture))
-        song = torch.nn.functional.pad(song, (0, grid.padded_length - length))
-        flat = self._heads(chunked.frame_song(song, grid, padded=True), embs)
+    def _sweep_body(self, song: torch.Tensor, embs: torch.Tensor,
+                    length: torch.Tensor, grid: chunked.ChunkGrid
+                    ) -> torch.Tensor:
+        """The whole-song program: ``song (2, grid.padded_length)``, int16
+        or f32, zero past ``length`` -> (S*2, padded_length) float32;
+        chunks that start at or past ``length`` carry zero weight."""
+        flat = self._heads(chunked.frame_song(_to_float_song(song), grid,
+                                              padded=True), embs)
         valid = (torch.arange(grid.n_chunks, device=self.device)
                  * grid.hop) < length
         out = chunked.overlap_add_weighted(flat, grid, self.overlap, valid)
         return out.float()
 
+    @torch.inference_mode()
+    def _sweep_on_device(self, mixture: np.ndarray, embs: torch.Tensor
+                         ) -> torch.Tensor:
+        """Whole-song sweep -> (S*2, T) float32 on the device: a view of
+        the program's output, so read it before the next sweep."""
+        length = int(np.shape(mixture)[-1])
+        grid = chunked.plan_chunks(length, self.segment, self.overlap,
+                                   self.bucket)
+        grid = dataclasses.replace(grid, length=grid.padded_length)
+        song = self._stage(mixture, grid.padded_length)
+        out = self._run(
+            self._key(grid.n_chunks, grid.segment, grid.hop, len(embs),
+                      song=song),
+            lambda s, e, n: self._sweep_body(s, e, n, grid), song, embs,
+            self._scalar(length, torch.int64))
+        return out[:, :length]
+
     def _sweep(self, mixture: np.ndarray, embs: torch.Tensor) -> np.ndarray:
-        """Whole-song sweep -> (S*2, T) float32 on the host."""
-        return self._sweep_on_device(mixture, embs).cpu().numpy()
+        """Whole-song sweep -> (S*2, T) float32 on the host, a copy of its
+        own (on the CPU the program's output is a host tensor already)."""
+        return self._sweep_on_device(mixture, embs).to(
+            "cpu", copy=True).numpy()
 
     @torch.inference_mode()
     def separate(self, mixture: np.ndarray, prompt: str) -> np.ndarray:
@@ -310,6 +426,19 @@ class Separator:
         flat = self._heads(chunked.frame_song(song, grid, padded=True), embs)
         return chunked.overlap_add_weighted(flat.float(), grid, seg - hop,
                                             normalize=False)
+
+    def _run_stream_block(self, song: np.ndarray, embs: torch.Tensor,
+                          block_chunks: int, hop: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_stream_block`` of a host ``song (2, span)`` through the
+        block's program: the program's ``(acc, wsum)``, rewritten by the
+        next replay."""
+        staged = self._stage(np.asarray(song, np.float32))
+        return self._run(
+            self._key("stream", block_chunks, self.segment, hop, len(embs),
+                      song=staged),
+            lambda s, e: self._stream_block(s, e, block_chunks, hop),
+            staged, embs)
 
     @torch.inference_mode()
     def separate_all(self, mixture: np.ndarray,
@@ -359,6 +488,15 @@ class Separator:
         q = torch.clamp(torch.round(emit / scale * 32767.0), -32768, 32767)
         return q.to(torch.int16), acc[:, advance:], wsum[advance:]
 
+    def _group_fn(self, g: int, hop: int) -> Callable:
+        """``_group`` of ``g`` chunks as the group program's function of
+        tensors, in the JAX ``_get_group_fn`` argument order: (song, embs,
+        scale, start, length, carry_acc, carry_w)."""
+        def group(song, embs, scale, start, length, carry_acc, carry_w):
+            return self._group(song, embs, g, hop, start, length, scale,
+                               carry_acc, carry_w)
+        return group
+
     @torch.inference_mode()
     def separate_all_pcm(self, mixture: np.ndarray,
                          stems: Sequence[str] = STEM_NAMES,
@@ -371,6 +509,28 @@ class Separator:
         inter-stem levels preserved); ``absolute=True`` uses scale 1, so the
         PCM is the float stem clipped at ±1, as a float->int16 WAV write.
         """
+        n_stems = len(stems)
+        length = int(np.shape(mixture)[-1])
+        pieces, scale = self._enqueue_all_pcm(mixture, stems, group_chunks,
+                                              absolute)
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()
+        pcm = np.empty((n_stems * 2, length), np.int16)
+        for s0, host, take in pieces:
+            pcm[:, s0:s0 + take] = host.numpy()[:, :take]
+        return pcm.reshape(n_stems, 2, length), np.full((n_stems,), scale,
+                                                        np.float32)
+
+    @torch.inference_mode()
+    def _enqueue_all_pcm(self, mixture: np.ndarray, stems: Sequence[str],
+                         group_chunks: int, absolute: bool
+                         ) -> Tuple[list, float]:
+        """``separate_all_pcm`` up to its final wait: each group's program,
+        then a clone of its PCM (the next replay rewrites the program's) and
+        the clone's copy into pinned host memory on a side stream, which
+        overlaps later groups.  Returns ``(pieces, scale)``, a piece
+        ``(start, host int16 (S*2, g*hop), valid columns)``.  Nothing in
+        here makes the host wait for the card."""
         n_stems = len(stems)
         song = np.ascontiguousarray(mixture)
         length = int(song.shape[-1])
@@ -391,10 +551,13 @@ class Separator:
         schedule = self._group_schedule(grid, group_chunks)
         hop, seg = grid.hop, grid.segment
         embs = self._stem_embs(stems)
-        carry_acc = torch.zeros((n_stems * 2, seg - hop), device=self.device)
-        carry_w = torch.zeros((seg - hop,), device=self.device)
+        scale_t = self._scalar(scale, torch.float32)
+        length_t = self._scalar(length, torch.int64)
+        carry_acc = self._zeros((n_stems * 2, seg - hop))
+        carry_w = self._zeros((seg - hop,))
         cuda = self.device.type == "cuda"
-        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        if cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
 
         pieces = []                   # (start, host int16 buffer, valid cols)
         start = 0
@@ -403,29 +566,25 @@ class Separator:
             if take <= 0:             # the schedule over-covers the grid
                 break
             span = (gi - 1) * hop + seg
-            piece = song[:, start:start + span]
-            if piece.shape[-1] < span:
-                piece = np.pad(piece, ((0, 0), (0, span - piece.shape[-1])))
-            q, carry_acc, carry_w = self._group(
-                self._upload(piece), embs, gi, hop, start, length, scale,
-                carry_acc, carry_w)
+            piece = self._stage(song[:, start:start + span], span)
+            q, carry_acc, carry_w = self._run(
+                self._key("group", gi, seg, hop, n_stems, song=piece),
+                self._group_fn(gi, hop), piece, embs, scale_t,
+                self._scalar(start, torch.int64), length_t, carry_acc,
+                carry_w)
+            q = q.clone()
             if cuda:
                 host = torch.empty(q.shape, dtype=torch.int16, pin_memory=True)
-                copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(copy_stream):
+                self._copy_stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._copy_stream):
                     host.copy_(q, non_blocking=True)
-                q.record_stream(copy_stream)
+                q.record_stream(self._copy_stream)
             else:
                 host = q
             pieces.append((start, host, take))
             start += gi * hop
-        if cuda:
-            copy_stream.synchronize()
-        pcm = np.empty((n_stems * 2, length), np.int16)
-        for s0, host, take in pieces:
-            pcm[:, s0:s0 + take] = host.numpy()[:, :take]
-        return pcm.reshape(n_stems, 2, length), np.full((n_stems,), scale,
-                                                        np.float32)
+        return pieces, scale
 
     @torch.inference_mode()
     def sweep_flops(self, length: int, n_stems: int = len(STEM_NAMES),

@@ -6,15 +6,21 @@ overlap-add weights are final; memory is O(block), whatever the stream's
 length.
 
 The chunk grid is global (chunk ``k`` starts at ``k * hop``).  A block of
-``block_chunks`` consecutive chunks runs through ``Separator._stream_block``
-(the encoder once, every stem's head in one batched pass) and returns the
-unnormalised ``(acc, wsum)`` pair.  The overlapping tail (``segment - hop``
-samples) carries into the next block, so the emitted audio equals the
-offline separation away from the stream's edges.
+``block_chunks`` consecutive chunks runs through the separator's program
+for that block (``Separator._run_stream_block``: ``_stream_block``, the
+encoder once and every stem's head in one batched pass, captured once per
+geometry) and returns the unnormalised ``(acc, wsum)`` pair.  The
+overlapping tail (``segment - hop`` samples) carries into the next block,
+so the emitted audio equals the offline separation away from the stream's
+edges.
 
 The carry stays on the device; only each emitted piece, already divided by
-its weights, is copied to the host.  The input buffer is on the host, as
-the samples arrive there.
+its weights, is copied to the host.  ``(acc, wsum)`` are the program's
+outputs, which its next replay rewrites: the carry is added into them in
+place, and each step copies the emitted piece to the host and clones the
+new carry before the next block runs.  The input buffer is on the host, as
+the samples arrive there; each block goes to the program from pinned
+memory.
 """
 
 from __future__ import annotations
@@ -88,9 +94,8 @@ class StreamingSeparator:
     def _run_block(self, song: np.ndarray):
         """One block plus the carry in -> ``(acc, wsum)`` on the device: the
         one home of the carry recurrence, shared by ``feed`` and ``flush``."""
-        dev = torch.from_numpy(np.ascontiguousarray(song)).to(self.sep.device)
-        acc, wsum = self.sep._stream_block(dev, self._embs, self.block_chunks,
-                                           self.hop)
+        acc, wsum = self.sep._run_stream_block(song, self._embs,
+                                               self.block_chunks, self.hop)
         if self._acc is not None:
             tail = self._acc.shape[-1]
             acc[:, :tail] += self._acc

@@ -88,3 +88,12 @@ def zero_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches, possibly negative) to the
+    kernels' counters: how ``infer.programs.Program`` books the launches a
+    graph replay makes, which no wrapper sees."""
+    wrappers = _wrappers()
+    for k, n in counts.items():
+        wrappers[k].launches += n

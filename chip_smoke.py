@@ -42,8 +42,10 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    seed-0 fingerprint (``models/seed0_fingerprint.json``: count, f64 sum
    and sum of squares, and the hash of every uniform leaf).  With bf16
    compute it serves a seeded 60 s stereo song, all 4 stems, through
-   ``separate_all_pcm``: once to warm up, then once with the kernels' launch
-   counters set to 0 just before and read just after.  Then one 6 s chunk
+   ``separate_all_pcm``: once to warm up (which captures its group
+   programs, ``infer.programs``), then once with the kernels' launch
+   counters set to 0 just before and read just after (the replays count
+   them), with the peak device memory of both calls.  Then one 6 s chunk
    goes through ``forward_with_text_emb`` with the kernels and with the
    per-op path; their rms difference must be below 1e-3.
 4. Training: the same full-width model (seeded init + trained head) trains
@@ -112,7 +114,8 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    in every tensor and marked pretrained; a ``Separator`` on it refuses to
    start without a BPE vocabulary, then, with ``ATSM_TOKENIZER_DIR`` at a
    ``vocab.json`` + ``merges.txt`` the phase writes, serves the 60 s song
-   with phase 3's launch counts (set to 0 just before, read just after);
+   (a call that captures its programs, then one timed) with phase 3's
+   launch counts (set to 0 just before the timed call, read just after);
    ``train`` with ``training.resume_from`` at the ``.pt``, given the model
    it would convert from there so that its towers can be read after, takes
    2 steps and a validation batch (finite loss, towers unchanged).  The C++
@@ -161,6 +164,35 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    eval SDR on a held-out 12 s track before within 0.1 dB of the JAX
    record's -4.37 dB, after at least +4.0 dB and at least +8 dB above
    before (the JAX record: +6.10, +10.47); the steps/s.
+10. The captured programs (after phase 9; numbers under ``programs``):
+   every ``Separator`` above on one card already ran its sweeps through
+   ``infer.programs`` (one CUDA graph per chunk geometry); here, on phase
+   3's model drawn again, a ``deterministic=True`` separator's
+   ``separate_all_pcm`` of the 60 s song: the warm-up (captures included),
+   each group program's capture seconds, the graph pool's bytes and the
+   peak device memory above the model, beside an eager sweep's allocated
+   and reserved peaks on a fresh separator; a warm call with the launch
+   counters set to 0 just before and read just after (phase 3's counts,
+   through replays), its PCM equal bit for bit to the same pipeline with
+   each group run by the eager ``_group``; both paths' walls in turn
+   (programs, eager, eager, programs); the host's CUDA calls in one call
+   under ``torch.profiler`` (one ``cudaGraphLaunch`` a group and no kernel
+   launched from the host, against the eager path's launches); the places
+   where the host waits for the card in it before its final synchronise
+   (``torch.cuda.set_sync_debug_mode``: none).  Then a default separator's
+   PCM against its ``separate_all`` (the whole-song program) within 1e-3
+   rms; a deterministic ``opt_in`` one's group programs, which must launch
+   ``henc_freq_fused``, ``dconv_rows``, ``attn_block`` and the STFT
+   through replays and equal their eager body bit for bit (their rms
+   against the default is printed: the head's divide by the signed CaC
+   plane magnifies the STFT kernel's last-bit differences from cuFFT);
+   and ``opt_in`` without the STFT kernel within 1e-3 rms of the
+   default.  Last, the
+   app separator: ``autotune_stream_block`` eager and then with programs
+   (floor and per-chunk seconds of a block step), and the 60 s song
+   streamed at ``block=8`` and at the autotuned block through the server's
+   feed loop without HTTP: first audio, wall, rate, and 1e-3 rms against
+   ``separate``; the card's ``nvidia-smi`` name and power limit.
 
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
@@ -1149,12 +1181,14 @@ def run_path(profile: bool) -> dict:
     song = _song(rng)
     n = song.shape[-1]
 
+    # the warm-up captures the group programs: their working set is
+    # allocated there, and a replay allocates nothing
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sep.separate_all_pcm(song)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    torch.cuda.reset_peak_memory_stats()
     _zero_counters()
     t0 = time.perf_counter()
     pcm, scales = sep.separate_all_pcm(song)
@@ -1162,10 +1196,13 @@ def run_path(profile: bool) -> dict:
     launches = {k: v for k, v in _read_counters().items()
                 if k in ("layer_tail", "henc_freq_fused")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
     rate = 4 * SONG_SECONDS / wall
-    print(f"separate_all_pcm: warm-up {warm_s:.2f} s, run {wall:.3f} s, "
-          f"{rate:.2f} audio-sec/sec (4 stems x {SONG_SECONDS:.0f} s), peak "
-          f"device memory {peak_gib:.2f} GiB, launches {launches}")
+    print(f"separate_all_pcm: warm-up {warm_s:.2f} s (captures included), "
+          f"run {wall:.3f} s, {rate:.2f} audio-sec/sec (4 stems x "
+          f"{SONG_SECONDS:.0f} s), peak device memory {peak_gib:.2f} GiB "
+          f"allocated over both, {reserved_gib:.2f} GiB reserved, launches "
+          f"{launches}")
     if pcm.dtype != np.int16 or pcm.shape != (4, 2, n):
         raise SmokeFailure(f"pcm {pcm.dtype} {pcm.shape}, want int16 (4, 2, {n})")
     if not np.all(np.isfinite(scales)) or np.abs(pcm).max() == 0:
@@ -1194,7 +1231,8 @@ def run_path(profile: bool) -> dict:
     result = {"launches": launches, "warmup_s": warm_s, "wall_s": wall,
               "audio_sec_per_sec": rate, "setup_s": setup_s,
               "draw_s": draw_s, "fingerprint": seeded,
-              "peak_mem_gib": peak_gib, "path_rms": rms,
+              "peak_mem_gib": peak_gib, "reserved_gib": reserved_gib,
+              "path_rms": rms,
               "path_ref_rms": ref_rms, "stem_rms_lsb": stem_rms.tolist(),
               "gate": gate}
     if profile:
@@ -1806,19 +1844,22 @@ def run_serving(profile: bool) -> dict:
     except torch.cuda.OutOfMemoryError as e:
         raise SmokeFailure(f"a block of {block} chunks does not fit: {e}")
     block_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
     total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
-    print(f"  one block of {block} chunks: peak device memory "
-          f"{block_gib:.2f} of {total_gib:.2f} GiB")
+    print(f"  one block of {block} chunks (its program captured by the "
+          f"autotune): peak device memory {block_gib:.2f} GiB allocated, "
+          f"{reserved_gib:.2f} GiB reserved (the programs' pool included) of "
+          f"{total_gib:.2f} GiB")
     del stream
 
     steps = {"n": 0}
-    block_fn = sep._stream_block
+    block_fn = sep._run_stream_block
 
     def counted(*args, **kwargs):
         steps["n"] += 1
         return block_fn(*args, **kwargs)
 
-    sep._stream_block = counted
+    sep._run_stream_block = counted
 
     song = _song(np.random.default_rng(SEED))
     n = song.shape[-1]
@@ -1831,7 +1872,7 @@ def run_serving(profile: bool) -> dict:
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     result = {"setup_s": setup_s, "autotune": tune, "autotune_s": tune_s,
-              "block_peak_gib": block_gib}
+              "block_peak_gib": block_gib, "reserved_gib": reserved_gib}
     try:
         sent = {"separate": 0, "separate_stream": 0, "separate_all": 0}
         # two direct calls on the app separator's deterministic cuDNN
@@ -1978,7 +2019,7 @@ def run_serving(profile: bool) -> dict:
         result.update(requests=sent, busy_share=busy, metrics=metrics,
                       separate_all_server_s=server_s)
     finally:
-        sep._stream_block = block_fn
+        sep._run_stream_block = block_fn
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
@@ -2068,6 +2109,7 @@ def _pt_round_trip(card: str, model, song: np.ndarray, launches3: dict,
     os.environ["ATSM_TOKENIZER_DIR"] = str(vocab)
     try:
         sep = Separator(loaded, device="cuda")
+        sep.separate_all_pcm(song)          # captures the group programs
         torch.cuda.synchronize()
         _zero_counters()
         t0 = time.perf_counter()
@@ -2687,6 +2729,570 @@ def run_learning_proof(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the captured programs
+# ---------------------------------------------------------------------------
+
+# the eager port's record on the H100 before the programs: phase 3's peak
+# memory, phase 6's stream step model
+EAGER_PEAK_GIB = 4.94
+EAGER_STREAM_FLOOR_S, EAGER_STREAM_PER_CHUNK_S = 0.0575, 0.0074
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")
+
+
+class _eager:
+    """Inside the block ``sep`` runs each program's function eagerly (the
+    group program's ``_group``, the stream's ``_stream_block``), on the
+    same inputs moved to the card and with the same pipeline around them:
+    the path the programs replace, for a comparison in one process."""
+
+    def __init__(self, sep):
+        self.sep = sep
+
+    def __enter__(self):
+        dev = self.sep.device
+
+        def run(key, fn, *args):
+            return fn(*(a.to(dev, non_blocking=True) for a in args))
+
+        self.sep._run = run
+        return self.sep
+
+    def __exit__(self, *exc):
+        del self.sep._run
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of device memory the caching allocator holds for the graph
+    memory pool ``pool`` (a ``torch.cuda.graph_pool_handle()``)."""
+    want = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == want)
+
+
+def _programs_of(sep) -> dict:
+    """Each program's key (as text) -> its capture seconds."""
+    return {"/".join(map(str, key)): prog.capture_s
+            for key, prog in sep._programs.items()}
+
+
+# the device kernels each wrapper of the default path launches, by name
+DEVICE_KERNELS = {"layer_tail": ("gemm_kernel<", "flash_kernel", "ln_kernel"),
+                  "henc_freq_fused": ("henc_", "dconv::")}
+
+
+def _host_calls(fn) -> tuple:
+    """``fn()`` then a synchronise under ``torch.profiler``: the CUDA
+    runtime and driver API calls the host made, by name, and the device
+    kernels of each ``DEVICE_KERNELS`` wrapper the card ran (a graph's
+    kernels too: CUPTI traces each node of a replay)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = Counter(e.name for e in events if e.device_type == DeviceType.CPU
+                   and e.name.startswith(("cuda", "cu")))
+    device = Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            for k, parts in DEVICE_KERNELS.items():
+                if any(part in e.name for part in parts):
+                    device[k] += 1
+    return dict(host), {k: device[k] for k in DEVICE_KERNELS}
+
+
+def _launches_from_host(calls: dict) -> int:
+    return sum(n for name, n in calls.items() if name.startswith(HOST_LAUNCHES))
+
+
+def _timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _serving_programs(model, song: np.ndarray, path: dict) -> dict:
+    """The group programs on a deterministic separator: capture, memory,
+    launches through replays, bit-equality with the eager body, rates of
+    both (programs, eager, eager, programs), host launches and waits."""
+    from audio_to_sheet_music_tpu_torch.infer import chunked
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+
+    # what the eager sweep holds: the caching allocator's segments (reserved)
+    # are what a graph pool keeps for its programs' lifetime
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eager_sep = Separator(model, device="cuda", deterministic=True)
+    base, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    with _eager(eager_sep):
+        eager_sep.separate_all_pcm(song)
+    eager_mem = {"allocated_gib": (torch.cuda.max_memory_allocated() - base)
+                 / 2 ** 30, "reserved_gib": (torch.cuda.max_memory_reserved()
+                                             - base_res) / 2 ** 30}
+    del eager_sep
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    sep = Separator(model, device="cuda", deterministic=True)
+    t0 = time.perf_counter()
+    first, scales = sep.separate_all_pcm(song)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 - base_gib
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
+    pool_gib = _pool_bytes(sep._pool) / 2 ** 30
+    captured = _programs_of(sep)
+    grid = chunked.plan_chunks(song.shape[-1], sep.segment, sep.overlap,
+                               sep.bucket)
+    schedule = sep._group_schedule(grid, 4)
+    print(f"  separate_all_pcm, deterministic: warm-up (captures included) "
+          f"{warm_s:.3f} s; {len(captured)} group programs for schedule "
+          f"{schedule}, capture s {captured}; graph pool {pool_gib:.3f} GiB "
+          f"reserved; peak device memory allocated above the model "
+          f"{peak_gib:.3f} GiB (phase 3 eager, whole process: "
+          f"{EAGER_PEAK_GIB} GiB); the process reserves {reserved_gib:.3f} "
+          f"GiB; an eager sweep's first call on a fresh separator: peak "
+          f"{eager_mem['allocated_gib']:.3f} GiB allocated, "
+          f"{eager_mem['reserved_gib']:.3f} GiB reserved")
+    if len(captured) != len(set(schedule)):
+        raise SmokeFailure(f"{len(captured)} group programs for the "
+                           f"schedule {schedule}")
+
+    _zero_counters()
+    pcm, _ = sep.separate_all_pcm(song)
+    launches = {k: v for k, v in _read_counters().items() if v}
+    with _eager(sep):
+        t0 = time.perf_counter()
+        eager, _ = sep.separate_all_pcm(song)
+        torch.cuda.synchronize()
+        eager_first_s = time.perf_counter() - t0
+    diff = _pcm_diff(pcm, eager)
+    print(f"  launches through {len(schedule)} replays {launches} (phase 3: "
+          f"{path['launches']}); PCM against the eager _group: max diff "
+          f"{diff} int16 steps (first call {_pcm_diff(first, eager)})")
+    if launches != path["launches"]:
+        raise SmokeFailure("the replays did not count phase 3's launches")
+    if diff != 0 or _pcm_diff(first, eager) != 0:
+        raise SmokeFailure("the programs' PCM is not the eager body's")
+
+    walls = {"programs": [], "eager": []}
+    for label in ("programs", "eager", "eager", "programs"):
+        if label == "eager":
+            with _eager(sep):
+                walls[label].append(_timed(lambda: sep.separate_all_pcm(song)))
+        else:
+            walls[label].append(_timed(lambda: sep.separate_all_pcm(song)))
+    rates = {k: 4 * SONG_SECONDS / (sum(v) / len(v)) for k, v in walls.items()}
+    print(f"  separate_all_pcm walls (programs, eager, eager, programs) "
+          f"{walls['programs'][0]:.4f}, {walls['eager'][0]:.4f}, "
+          f"{walls['eager'][1]:.4f}, {walls['programs'][1]:.4f} s: "
+          f"{rates['programs']:.2f} against {rates['eager']:.2f} "
+          f"audio-sec/sec; the eager path's first call here "
+          f"{eager_first_s:.3f} s")
+
+    busy = device_busy(lambda: sep.separate_all_pcm(song))
+    with _eager(sep):
+        eager_busy = device_busy(lambda: sep.separate_all_pcm(song))
+    print(f"  device busy in one separate_all_pcm: programs "
+          f"{busy['busy_ms']:.1f} of {busy['wall_ms']:.1f} ms "
+          f"({busy['busy_ms'] / busy['wall_ms']:.1%}), eager "
+          f"{eager_busy['busy_ms']:.1f} of {eager_busy['wall_ms']:.1f} ms "
+          f"({eager_busy['busy_ms'] / eager_busy['wall_ms']:.1%})")
+    _zero_counters()
+    calls, traced = _host_calls(lambda: sep.separate_all_pcm(song))
+    booked = {k: v for k, v in _read_counters().items() if v}
+    _zero_counters()
+    with _eager(sep):
+        eager_calls, eager_traced = _host_calls(
+            lambda: sep.separate_all_pcm(song))
+    counted = {k: v for k, v in _read_counters().items() if v}
+    graphs = calls.get("cudaGraphLaunch", 0)
+    kernels = _launches_from_host(calls)
+    print(f"  host calls in one separate_all_pcm: cudaGraphLaunch {graphs}, "
+          f"kernel launches {kernels}, cudaMemcpyAsync "
+          f"{calls.get('cudaMemcpyAsync', 0)} (eager: kernel launches "
+          f"{_launches_from_host(eager_calls)}, cudaMemcpyAsync "
+          f"{eager_calls.get('cudaMemcpyAsync', 0)})")
+    if graphs != len(schedule) or kernels != 0:
+        raise SmokeFailure(f"a replayed sweep made {graphs} graph launches "
+                           f"for {len(schedule)} groups and {kernels} kernel "
+                           f"launches from the host: {calls}")
+    # the replays' launch counts are booked, not seen by a wrapper: hold
+    # them against the kernels the card ran, which the eager body's
+    # wrappers count as they launch
+    print(f"  device kernels traced in that call, by wrapper: replays "
+          f"{traced}, eager {eager_traced}; launches booked for the "
+          f"replays {booked}, counted by the eager body's wrappers "
+          f"{counted}")
+    if (booked != counted or traced != eager_traced
+            or any(traced[k] < counted.get(k, 0) or not counted.get(k)
+                   for k in DEVICE_KERNELS)):
+        raise SmokeFailure("the launches booked for the replays are not "
+                           "what the card ran")
+
+    waits = _sync_points(lambda: sep._enqueue_all_pcm(song, STEMS4, 4,
+                                                      False))
+    sep._copy_stream.synchronize()
+    print(f"  host waits in separate_all_pcm before its final synchronise "
+          f"(file:line: count): {waits}")
+    if waits:
+        raise SmokeFailure("separate_all_pcm makes the host wait for the "
+                           "card before its final synchronise")
+    return {"warmup_s": warm_s, "programs": captured, "pool_gib": pool_gib,
+            "peak_gib_above_model": peak_gib, "reserved_gib": reserved_gib,
+            "eager_memory": eager_mem, "launches": launches,
+            "pcm_diff_lsb": diff, "walls_s": walls, "rates": rates,
+            "eager_first_s": eager_first_s, "busy": busy,
+            "eager_busy": eager_busy, "host_calls": calls,
+            "eager_host_calls": eager_calls, "device_kernels": traced,
+            "eager_device_kernels": eager_traced, "host_waits": waits,
+            "scales": scales.tolist()}
+
+
+def _stem_rms_each(pcm: np.ndarray, scales: np.ndarray, ref: dict) -> dict:
+    dq = pcm.astype(np.float32) * (scales[:, None, None] / 32767.0)
+    return {s: float(np.sqrt(np.mean((dq[i] - ref[s]) ** 2)))
+            for i, s in enumerate(STEMS4)}
+
+
+def _default_and_opt_in(model, song: np.ndarray) -> dict:
+    """A default separator's programs against its own ``separate_all``
+    (the whole-song program); the group programs under ``opt_in``, which
+    hold rows 3-5 of the kernel table, against the eager body bit for bit
+    and against the default; and ``opt_in`` without the STFT kernel."""
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+    from audio_to_sheet_music_tpu_torch.ops.select import KernelSelection
+
+    out = {}
+    sep = Separator(model, device="cuda")
+    pcm, scales = sep.separate_all_pcm(song)
+    ref = sep.separate_all(song)
+    rms = _stem_rms(pcm, scales, ref, STEMS4)
+    out["default"] = {"rms_vs_separate_all": rms,
+                      "programs": _programs_of(sep)}
+    print(f"  default separator: separate_all_pcm against separate_all "
+          f"(both programs) rms {rms:.3e} (limit {PATH_RMS_LIMIT:.0e}); "
+          f"programs {out['default']['programs']}")
+    if not (math.isfinite(rms) and rms < PATH_RMS_LIMIT):
+        raise SmokeFailure("the default separator's programs disagree")
+    del sep
+
+    sep = Separator(model, device="cuda", kernels="opt_in",
+                    deterministic=True)
+    sep.separate_all_pcm(song)
+    _zero_counters()
+    pcm, scales = sep.separate_all_pcm(song)
+    launches = {k: v for k, v in _read_counters().items() if v}
+    with _eager(sep):
+        eager, _ = sep.separate_all_pcm(song)
+    diff = _pcm_diff(pcm, eager)
+    vs_default = _stem_rms_each(pcm, scales, ref)
+    out["opt_in"] = {"launches": launches, "pcm_diff_lsb": diff,
+                     "rms_vs_default": vs_default,
+                     "programs": _programs_of(sep)}
+    print(f"  opt_in separator (deterministic): launches through replays "
+          f"{launches}; PCM against the eager _group: max diff {diff} int16 "
+          f"steps; rms against the default's separate_all per stem "
+          f"{vs_default}; programs {out['opt_in']['programs']}")
+    if (set(launches) != {"henc_freq_fused", "dconv_rows", "attn_block",
+                          "stft"} or diff != 0):
+        raise SmokeFailure("the opt-in group programs did not run rows 2-5 "
+                           "or differ from the eager body")
+    del sep
+
+    # the head divides by the mixture's signed CaC plane + 1e-8, so the
+    # STFT kernel's last-bit differences from cuFFT can show in a stem;
+    # the other opt-in kernels are held to the default path
+    sep = Separator(model, device="cuda", kernels=KernelSelection(
+        enc=True, attn=True, dconv=True))
+    pcm, scales = sep.separate_all_pcm(song)
+    no_stft = _stem_rms_each(pcm, scales, ref)
+    out["opt_in_no_stft"] = {"rms_vs_default": no_stft}
+    print(f"  opt_in without the STFT kernel: rms against the default's "
+          f"separate_all per stem {no_stft} (limit {PATH_RMS_LIMIT:.0e})")
+    if not max(no_stft.values()) < PATH_RMS_LIMIT:
+        raise SmokeFailure("opt_in without the STFT kernel disagrees with "
+                           "the default")
+    return out
+
+
+def _stream(service, song: np.ndarray, block: int) -> dict:
+    """The server's stream loop without HTTP: feed steps of ``block``
+    hops, first audio at the first emitted piece."""
+    from audio_to_sheet_music_tpu_torch.infer import streaming
+
+    sep = service.separator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = streaming.StreamingSeparator(sep, stems=("vocals",),
+                                          block_chunks=block)
+    step = stream.hop * block
+    pieces, first = [], None
+    for start in range(0, song.shape[-1], step):
+        pieces += stream.feed(song[:, start:start + step])
+        if pieces and first is None:
+            first = time.perf_counter() - t0
+    pieces.append(stream.flush())
+    wall = time.perf_counter() - t0
+    if first is None:           # a block longer than the song: all in flush
+        first = wall
+    out = np.concatenate([p[0] for p in pieces], axis=-1)
+    return {"block": block, "first_audio_s": first, "wall_s": wall,
+            "audio_sec_per_sec": SONG_SECONDS / wall, "out": out}
+
+
+def _stream_programs(song: np.ndarray) -> dict:
+    """The app separator's stream: the autotune with programs and eager,
+    then block 8 and ``auto`` through the programs against ``separate``."""
+    from audio_to_sheet_music_tpu_torch.apps import serve, serve_http
+    from audio_to_sheet_music_tpu_torch.infer import streaming
+
+    sep = serve.build_separator(None, "config.yaml", device="cuda")
+    service = serve_http.SeparationService(sep, pretrained=sep.pretrained,
+                                           spectrograms=False)
+    with _eager(sep):
+        eager_tune = serve_http.SeparationService(sep).autotune_stream_block()
+    t0 = time.perf_counter()
+    tune = service.autotune_stream_block()
+    tune_s = time.perf_counter() - t0
+    print(f"  autotune with programs ({tune_s:.2f} s, captures included): "
+          f"steps {tune['measured_s']} s -> floor_s {tune['floor_s']}, "
+          f"per_chunk_s {tune['per_chunk_s']}, block {tune['block']}; eager "
+          f"here: steps {eager_tune['measured_s']} s -> floor_s "
+          f"{eager_tune['floor_s']}, per_chunk_s {eager_tune['per_chunk_s']}"
+          f", block {eager_tune['block']} (the eager port's record: "
+          f"{EAGER_STREAM_FLOOR_S}, {EAGER_STREAM_PER_CHUNK_S})")
+    out = {"autotune": tune, "autotune_s": tune_s, "eager_autotune":
+           eager_tune}
+    for block in (2, 8):        # the autotune's steps, now replays
+        stream = streaming.StreamingSeparator(sep, stems=("vocals",),
+                                              block_chunks=block)
+        silence = np.zeros((2, stream._span), np.float32)
+        out[f"step_{block}_profile"] = profile_device(
+            lambda: stream.feed(silence), f"one {block}-chunk stream step "
+            "(its program's replay, the carry, the piece to the host)")
+    stem = sep.separate(song, "vocals")
+    for name, block in (("8", STREAM_FIXED_BLOCK), ("auto", tune["block"])):
+        run = _stream(service, song, block)
+        got = run.pop("out")
+        rms = float(np.sqrt(np.mean((got[:, 1:-1] - stem[:, 1:-1]) ** 2)))
+        run["rms_vs_separate"] = rms
+        out[name] = run
+        print(f"  stream block={name} ({block}): first audio "
+              f"{run['first_audio_s']:.4f} s, wall {run['wall_s']:.4f} s, "
+              f"{run['audio_sec_per_sec']:.2f} audio-sec/sec (1 stem x "
+              f"{SONG_SECONDS:.0f} s), rms vs separate {rms:.3e} (limit "
+              f"{PATH_RMS_LIMIT:.0e})")
+        if got.shape != song.shape or not rms < PATH_RMS_LIMIT:
+            raise SmokeFailure(f"the stream at block {block} differs from "
+                               "separate")
+    out["programs"] = _programs_of(sep)
+    print(f"  app separator's programs {out['programs']}")
+    out["server_memory"] = _server_lengths(service, song)
+    return out
+
+
+SERVER_SECONDS = (5, 12, 20, 33, 47, 60, 75, 90, 120, 150, 180, 5, 12, 20, 60)
+
+
+def _server_lengths(service, song: np.ndarray) -> dict:
+    """The HTTP server's device memory over songs of many lengths: one
+    ``/api/separate`` (``separate_pcm``, a whole-song program per chunk
+    bucket) a length of ``SERVER_SECONDS``, the first ones again at the
+    end, on the app separator after its streams."""
+    import threading
+
+    from audio_to_sheet_music_tpu_torch.apps import serve_http
+    from audio_to_sheet_music_tpu_torch.infer import chunked, session
+
+    sep = service.separator
+    pcm16 = (np.clip(np.tile(song, 3), -1.0, 1.0) * 32767.0).astype(np.int16)
+    httpd = serve_http.make_server(service, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    rows = []
+    try:
+        for seconds in SERVER_SECONDS:
+            n = int(seconds * SAMPLE_RATE)
+            got = _request(port, "POST", "/api/separate?prompt=vocals",
+                           _wav_bytes(pcm16[:, :n]))
+            if len(got["body"]) != 44 + 4 * n:
+                raise SmokeFailure(f"/api/separate at {seconds} s: "
+                                   f"{len(got['body'])} bytes")
+            last = (got["body"], n)
+            sweeps = [k[0] for k in sep._programs if isinstance(k[0], int)]
+            rows.append({
+                "seconds": seconds, "wall_s": got["wall_s"],
+                "n_chunks": chunked.plan_chunks(n, sep.segment, sep.overlap,
+                                                sep.bucket).n_chunks,
+                "sweep_programs": sweeps, "programs": len(sep._programs),
+                "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+                "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+                "pool_gib": _pool_bytes(sep._pool) / 2 ** 30})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    # the last song's program was dropped and captured again: hold its
+    # answer to the eager body
+    body, n = last
+    with _eager(sep):
+        eager = sep.separate_pcm(pcm16[:, :n], "vocals")
+    diff = _pcm_diff(np.frombuffer(body[44:], "<i2").reshape(n, 2).T, eager)
+    print(f"  the last song, its program captured again: max diff to the "
+          f"eager body {diff} int16 steps")
+    if diff > 1:
+        raise SmokeFailure("a program captured again disagrees with the "
+                           "eager body")
+    print(f"  HTTP server, /api/separate over {len(rows)} songs (s, chunks, "
+          f"wall s, whole-song programs kept, reserved / allocated / pool "
+          f"GiB):")
+    for r in rows:
+        print(f"    {r['seconds']:4d} {r['n_chunks']:3d} {r['wall_s']:7.3f} "
+              f"{r['sweep_programs']} {r['reserved_gib']:.3f} / "
+              f"{r['allocated_gib']:.3f} / {r['pool_gib']:.3f}")
+    if any(len(r["sweep_programs"]) > session.SWEEP_PROGRAMS for r in rows):
+        raise SmokeFailure("the server kept more whole-song programs than "
+                           f"{session.SWEEP_PROGRAMS}")
+    return {"rows": rows, "limit": session.SWEEP_PROGRAMS,
+            "recaptured_diff_lsb": diff}
+
+
+def _stft_witness(model, song: np.ndarray, opt_in: dict) -> dict:
+    """Is the opt-in stems' distance from the default (``opt_in``: rms a
+    stem) the head's divide by its signed CaC plane + 1e-8 magnifying the
+    STFT kernel's rounding?  On a deterministic default separator, run
+    eagerly: the kernel's difference from cuFFT on the song's own frames
+    (rms ``sigma`` a real component, max, and how many values of the
+    divisor's planes lie within that max of the pole at -1e-8, and how
+    many are 0, as cuFFT leaves a real frame's DC bin); then the
+    stems' rms movement when cuFFT's output is moved by (a) seeded noise
+    of rms ``sigma``, (b) the same noise where |value| >= 1e-6 only, away
+    from the pole, (c) one ulp, up or down at random; and (d) nothing,
+    the same run again."""
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+    from audio_to_sheet_music_tpu_torch.ops import dsp
+
+    orig = dsp.stft
+    sep = Separator(model, device="cuda", deterministic=True)
+    mode = {"what": None}
+    acc = {"sq": 0.0, "n": 0, "max": 0.0, "near_pole": 0, "planes": 0}
+    gen = torch.Generator(device="cuda")
+
+    def stft(x, n_fft=4096, hop=1024, kernel=False, normalized=True):
+        z = orig(x, n_fft, hop, kernel=kernel, normalized=normalized)
+        if kernel or mode["what"] is None or z.dim() != 4:
+            return z
+        r = torch.view_as_real(z)
+        if mode["what"] == "measure":
+            d = torch.view_as_real(orig(x, n_fft, hop, kernel=True,
+                                        normalized=normalized)) - r
+            acc["sq"] += float((d.double() ** 2).sum())
+            acc["n"] += d.numel()
+            acc["max"] = max(acc["max"], float(d.abs().max()))
+            return z
+        if mode["what"] == "ulp":
+            up = torch.rand(r.shape, generator=gen, device=r.device) < 0.5
+            inf = torch.full_like(r, math.inf)
+            moved = torch.nextafter(r, torch.where(up, inf, -inf))
+        else:
+            noise = torch.randn(r.shape, generator=gen,
+                                device=r.device) * mode["sigma"]
+            if mode["what"] == "far":
+                noise = torch.where(r.abs() >= 1e-6, noise, 0.0)
+            moved = r + noise
+        return torch.view_as_complex(moved.contiguous())
+
+    def stems() -> dict:
+        gen.manual_seed(SEED)
+        with _eager(sep):
+            return sep.separate_all(song)
+
+    dsp.stft = stft
+    try:
+        base = stems()
+        mode["what"] = "measure"
+        stems()
+        sigma = math.sqrt(acc["sq"] / acc["n"])
+        out = {"sigma": sigma, "max_abs": acc["max"]}
+        mode["what"] = None
+        # the divisor's planes: channel 0's real and imaginary parts
+        grabbed = []
+
+        def grab(x, n_fft=4096, hop=1024, kernel=False, normalized=True):
+            z = orig(x, n_fft, hop, kernel=kernel, normalized=normalized)
+            if z.dim() == 4:
+                plane = torch.view_as_real(z[:, 0])
+                near = ((plane + 1e-8).abs() < acc["max"]) & (plane != 0)
+                grabbed.append((int(near.sum()), int((plane == 0).sum()),
+                                plane.numel()))
+            return z
+
+        dsp.stft = grab
+        stems()
+        out["near_pole"] = sum(g[0] for g in grabbed)
+        out["divisor_zeros"] = sum(g[1] for g in grabbed)
+        out["divisor_values"] = sum(g[2] for g in grabbed)
+        dsp.stft = stft
+        for what in ("repeat", "noise", "far", "ulp"):
+            mode.update(what=None if what == "repeat" else what, sigma=sigma)
+            got = stems()
+            out[what] = {s: float(np.sqrt(np.mean((got[s] - base[s]) ** 2)))
+                         for s in STEMS4}
+    finally:
+        dsp.stft = orig
+    out["opt_in"] = opt_in
+    out["stem_rms"] = {s: float(np.sqrt(np.mean(base[s] ** 2)))
+                       for s in STEMS4}
+    print(f"  STFT witness: the kernel against cuFFT on the song's frames: "
+          f"rms {sigma:.3e}, max {out['max_abs']:.3e}; of "
+          f"{out['divisor_values']} divisor values {out['near_pole']} lie "
+          f"within that max of -1e-8 and are not 0, {out['divisor_zeros']} "
+          f"are 0; stem rms {out['stem_rms']}")
+    for what, label in (("repeat", "running again unmoved"),
+                        ("noise", "noise of that rms"),
+                        ("far", "that noise where |value| >= 1e-6"),
+                        ("ulp", "one ulp"), ("opt_in", "the opt-in path")):
+        print(f"    stems moved by {label}: "
+              + ", ".join(f"{s} {v:.3e}" for s, v in out[what].items()))
+    return out
+
+
+def run_programs(card: str, path: dict) -> dict:
+    """Phase 10: the Separator's captured programs (``infer.programs``),
+    on phase 3's model as it was (phase 7 trained that one's head)."""
+    from audio_to_sheet_music_tpu_torch.models import atht
+
+    t_phase = time.perf_counter()
+    print(f"phase 10 on {card}")
+    model = atht.load_params(atht.init(SEED, device="cuda"))
+    song = _song(np.random.default_rng(SEED))
+    out = {"serving": _serving_programs(model, song, path)}
+    torch.cuda.empty_cache()
+    out.update(_default_and_opt_in(model, song))
+    torch.cuda.empty_cache()
+    out["stft_witness"] = _stft_witness(model, song,
+                                        out["opt_in"]["rms_vs_default"])
+    torch.cuda.empty_cache()
+    out["stream"] = _stream_programs(song)
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 10 in {out['phase_s']:.1f} s on {out['card']}")
+    return out
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -2732,6 +3338,7 @@ def main(argv: list) -> int:
         slice9 = run_checkpoints_towers(card, model, stems, path["launches"])
         parallel = run_parallel_gate(card, path, pcm)
         learning = run_learning_proof(card)
+        graphs = run_programs(card, path)
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
@@ -2754,7 +3361,7 @@ def main(argv: list) -> int:
          "kernels": kernels, "path": path, "training": training,
          "eval": evaluation, "serving": serving,
          "checkpoints_towers": slice9, "parallel_gate": parallel,
-         "learning_proof": learning},
+         "learning_proof": learning, "programs": graphs},
         indent=1, default=str))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",
