@@ -14,7 +14,9 @@ Surface:
                           per-endpoint request counts, wall seconds, audio
                           seconds and response bytes, and the device lock's
                           busy and wait seconds (busy / uptime is the card's
-                          occupancy a deployment scales on).
+                          occupancy a deployment scales on), and the
+                          program's own counters (``utils.profiling.counts``;
+                          see ``ServiceMetrics``).
   ``POST /api/separate``  body = WAV bytes, query ``?prompt=...``; returns
                           ``audio/wav`` (``Separator.separate_pcm``: int16
                           in, int16 out, no float pass on the host) or, with
@@ -218,7 +220,24 @@ class ServiceMetrics:
     ``device_busy_seconds`` integrates the time the device lock was held
     (on a one-card server busy / uptime is the occupancy a deployment
     scales on); ``device_wait_seconds`` integrates the time requests queued
-    for it (the saturation signal)."""
+    for it (the saturation signal).
+
+    The program's counters (``utils.profiling.counts``, process-wide) come
+    with them, as ``atsm_<name with _ for .>_total`` and under ``counters``
+    in the JSON form; what an operator reads in them:
+
+    - ``program_captures``: chunk programs built (on a card, captured as a
+      CUDA graph).  It grows with each new chunk geometry and whole-song
+      length bucket; growth under steady traffic means programs are being
+      evicted and built again.  ``program_replays``: program calls.
+    - ``text_tower_runs`` / ``text_cache_hits``: prompts embedded by the
+      text tower against prompts served from the cache.
+    - ``chunks_computed`` / ``chunks_padded``: chunks ``/api/separate_all``
+      ran, and those of them past the song's end (bucket padding: work
+      that returns nothing).
+    - ``stream_blocks``: blocks the stream endpoint ran.
+    - ``launches_<kernel>``: each hand-written kernel's launches, replays
+      included (``ops.select.launch_counts``)."""
 
     def __init__(self):
         self._mu = threading.Lock()
@@ -244,12 +263,15 @@ class ServiceMetrics:
             self.device_wait_seconds += wait
 
     def snapshot(self) -> dict:
+        from ..utils import profiling
+
         with self._mu:
             return {
                 "uptime_seconds": time.time() - self.started,
                 "device_busy_seconds": self.device_busy_seconds,
                 "device_wait_seconds": self.device_wait_seconds,
                 "endpoints": {k: dict(v) for k, v in self.endpoints.items()},
+                "counters": profiling.counts(),
             }
 
     def prometheus(self) -> str:
@@ -284,6 +306,10 @@ class ServiceMetrics:
             for ep, e in sorted(s["endpoints"].items()):
                 lines.append(f'{name}{{endpoint="{ep}"}} '
                              + fmt.format(v=e[key]))
+        for key, v in sorted(s["counters"].items()):
+            name = "atsm_" + key.replace(".", "_") + "_total"
+            lines += [f"# HELP {name} Program counter {key}.",
+                      f"# TYPE {name} counter", f"{name} {v}"]
         return "\n".join(lines) + "\n"
 
 

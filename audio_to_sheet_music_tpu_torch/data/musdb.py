@@ -38,6 +38,7 @@ from typing import Dict, Iterator, List, Sequence
 import numpy as np
 
 from ..text.prompts import STEM_NAME_TO_INDEX, STEM_NAMES, STEM_PROMPTS
+from ..utils import profiling
 
 WAV_STEM_FILES = ["mixture", "drums", "bass", "other", "vocals"]
 
@@ -191,7 +192,8 @@ class BatchLoader:
     (SURVEY §7 hard part #4).  ``drop_last`` keeps the batch shape static —
     one compile for the whole run.  A background thread keeps ``prefetch``
     batches ready (the async pipeline the reference configured to 0 workers,
-    `config.yaml:23`).
+    `config.yaml:23`).  Spans: ``atsm.data.wait``, the consumer waiting for
+    a batch, and ``atsm.data.make_batch`` in the producer thread.
     """
 
     def __init__(self, dataset: StemSegmentDataset, batch_size: int,
@@ -245,7 +247,8 @@ class BatchLoader:
                         return
                     idxs = order[b * self.batch_size
                                  : (b + 1) * self.batch_size]
-                    batch = self._make_batch(idxs)
+                    with profiling.span("atsm.data.make_batch"):
+                        batch = self._make_batch(idxs)
                     while not stop.is_set():
                         try:
                             q.put(batch, timeout=0.2)
@@ -270,7 +273,8 @@ class BatchLoader:
         thread.start()
         try:
             while True:
-                batch = q.get()
+                with profiling.span("atsm.data.wait"):
+                    batch = q.get()
                 if batch is None:
                     if error:
                         raise RuntimeError(

@@ -37,6 +37,10 @@ Launch counts: each kernel's wrapper counts its launches as it is called
 (``ops.select.launch_counts``).  A capture calls the wrappers without
 running anything, so the program takes the capture's counts back, keeps
 them, and adds them again at every replay.
+
+Spans and counters (``utils.profiling``): ``atsm.program.capture`` over
+construction and ``program.captures`` a program built; ``atsm.program.replay``
+over a call and ``program.replays`` a call.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 
 from ..ops import select
+from ..utils import profiling
 
 WARMUP_RUNS = 2
 
@@ -82,7 +87,9 @@ class Program:
         self._single = False
         self._fn: Callable | None = fn
         if self.device.type == "cuda":
-            self._capture(args, pool)
+            with profiling.span("atsm.program.capture"):
+                self._capture(args, pool)
+        profiling.count("program.captures")
 
     def _pack(self, out) -> Tuple[torch.Tensor, ...]:
         self._single = isinstance(out, torch.Tensor)
@@ -128,15 +135,17 @@ class Program:
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, *args: torch.Tensor):
-        self._load(args)
-        if self.graph is not None:
-            self.graph.replay()
-            select.add_launch_counts(self.launches)
-        else:
-            outs = self._pack(self._fn(*self.inputs))
-            if self.outputs is None:
-                self.outputs = tuple(torch.empty_like(o) for o in outs)
-            for static, o in zip(self.outputs, outs):
-                static.copy_(o)
+        with profiling.span("atsm.program.replay"):
+            self._load(args)
+            if self.graph is not None:
+                self.graph.replay()
+                select.add_launch_counts(self.launches)
+            else:
+                outs = self._pack(self._fn(*self.inputs))
+                if self.outputs is None:
+                    self.outputs = tuple(torch.empty_like(o) for o in outs)
+                for static, o in zip(self.outputs, outs):
+                    static.copy_(o)
         self.replays += 1
+        profiling.count("program.replays")
         return self.outputs[0] if self._single else self.outputs

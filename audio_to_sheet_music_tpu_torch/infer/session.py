@@ -90,6 +90,7 @@ from ..ops.select import NONE, Kernels, resolve
 from ..parallel import mesh as meshlib
 from ..text.prompts import STEM_NAMES
 from ..text.tokenizer import default_tokenizer
+from ..utils import profiling
 from . import chunked, programs
 
 SAMPLE_RATE = 44100
@@ -234,7 +235,9 @@ class Separator:
     @torch.inference_mode()
     def text_embedding(self, prompt: str) -> torch.Tensor:
         """(512,) f32 CLAP embedding on the device, cached per prompt."""
-        if prompt not in self._emb_cache:
+        if prompt in self._emb_cache:
+            profiling.count("text.cache_hits")
+        else:
             ids, mask = self.tokenizer([prompt])
             emb = atht.encode_text(
                 self.model, torch.from_numpy(ids).to(self.device),
@@ -246,7 +249,9 @@ class Separator:
         """(S, 512) embeddings of ``stems`` on the device, kept per stem
         list (a program's input: a warm sweep launches no stack)."""
         key = tuple(stems)
-        if key not in self._stems_cache:
+        if key in self._stems_cache:
+            profiling.count("text.cache_hits", len(key))
+        else:
             self._stems_cache[key] = torch.stack(
                 [self.text_embedding(s) for s in stems])
         return self._stems_cache[key]
@@ -386,8 +391,9 @@ class Separator:
     def _sweep(self, mixture: np.ndarray, embs: torch.Tensor) -> np.ndarray:
         """Whole-song sweep -> (S*2, T) float32 on the host, a copy of its
         own (on the CPU the program's output is a host tensor already)."""
-        return self._sweep_on_device(mixture, embs).to(
-            "cpu", copy=True).numpy()
+        with profiling.span("atsm.sweep"):
+            return self._sweep_on_device(mixture, embs).to(
+                "cpu", copy=True).numpy()
 
     @torch.inference_mode()
     def separate(self, mixture: np.ndarray, prompt: str) -> np.ndarray:
@@ -405,9 +411,11 @@ class Separator:
         twice, to its shared-scale wire format and then to this level; one
         rounding here, so the two differ by at most one step while the
         stem's peak stays under 1.)"""
-        out = self._sweep_on_device(mixture, self.text_embedding(prompt)[None])
-        q = torch.clamp(torch.round(out * 32767.0), -32767, 32767)
-        return q.to(torch.int16).cpu().numpy()
+        emb = self.text_embedding(prompt)[None]
+        with profiling.span("atsm.sweep"):
+            out = self._sweep_on_device(mixture, emb)
+            q = torch.clamp(torch.round(out * 32767.0), -32767, 32767)
+            return q.to(torch.int16).cpu().numpy()
 
     @torch.inference_mode()
     def _stream_block(self, song: torch.Tensor, embs: torch.Tensor,
@@ -511,13 +519,16 @@ class Separator:
         """
         n_stems = len(stems)
         length = int(np.shape(mixture)[-1])
-        pieces, scale = self._enqueue_all_pcm(mixture, stems, group_chunks,
-                                              absolute)
-        if self._copy_stream is not None:
-            self._copy_stream.synchronize()
-        pcm = np.empty((n_stems * 2, length), np.int16)
-        for s0, host, take in pieces:
-            pcm[:, s0:s0 + take] = host.numpy()[:, :take]
+        with profiling.span("atsm.separate_all_pcm"):
+            pieces, scale = self._enqueue_all_pcm(mixture, stems,
+                                                  group_chunks, absolute)
+            with profiling.span("atsm.pcm.wait"):
+                if self._copy_stream is not None:
+                    self._copy_stream.synchronize()
+            with profiling.span("atsm.pcm.assemble"):
+                pcm = np.empty((n_stems * 2, length), np.int16)
+                for s0, host, take in pieces:
+                    pcm[:, s0:s0 + take] = host.numpy()[:, :take]
         return pcm.reshape(n_stems, 2, length), np.full((n_stems,), scale,
                                                         np.float32)
 
@@ -532,32 +543,34 @@ class Separator:
         ``(start, host int16 (S*2, g*hop), valid columns)``.  Nothing in
         here makes the host wait for the card."""
         n_stems = len(stems)
-        song = np.ascontiguousarray(mixture)
-        length = int(song.shape[-1])
-        if absolute:
-            scale = 1.0
-            if song.dtype != np.int16:
+        with profiling.span("atsm.pcm.scale"):
+            song = np.ascontiguousarray(mixture)
+            length = int(song.shape[-1])
+            if absolute:
+                scale = 1.0
+                if song.dtype != np.int16:
+                    song = song.astype(np.float32, copy=False)
+            elif song.dtype == np.int16:
+                peak = max(int(song.max(initial=0)), -int(song.min(initial=0)))
+                scale = max(2.0 * peak / 32768.0, 1e-8)
+            else:
                 song = song.astype(np.float32, copy=False)
-        elif song.dtype == np.int16:
-            peak = max(int(song.max(initial=0)), -int(song.min(initial=0)))
-            scale = max(2.0 * peak / 32768.0, 1e-8)
-        else:
-            song = song.astype(np.float32, copy=False)
-            peak = max(float(song.max(initial=0.0)), -float(song.min(initial=0.0)))
-            scale = max(2.0 * peak, 1e-8)
+                peak = max(float(song.max(initial=0.0)),
+                           -float(song.min(initial=0.0)))
+                scale = max(2.0 * peak, 1e-8)
 
-        grid = chunked.plan_chunks(length, self.segment, self.overlap,
-                                   self.bucket)
-        schedule = self._group_schedule(grid, group_chunks)
-        hop, seg = grid.hop, grid.segment
-        embs = self._stem_embs(stems)
-        scale_t = self._scalar(scale, torch.float32)
-        length_t = self._scalar(length, torch.int64)
-        carry_acc = self._zeros((n_stems * 2, seg - hop))
-        carry_w = self._zeros((seg - hop,))
-        cuda = self.device.type == "cuda"
-        if cuda and self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
+            grid = chunked.plan_chunks(length, self.segment, self.overlap,
+                                       self.bucket)
+            schedule = self._group_schedule(grid, group_chunks)
+            hop, seg = grid.hop, grid.segment
+            embs = self._stem_embs(stems)
+            scale_t = self._scalar(scale, torch.float32)
+            length_t = self._scalar(length, torch.int64)
+            carry_acc = self._zeros((n_stems * 2, seg - hop))
+            carry_w = self._zeros((seg - hop,))
+            cuda = self.device.type == "cuda"
+            if cuda and self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
 
         pieces = []                   # (start, host int16 buffer, valid cols)
         start = 0
@@ -565,24 +578,30 @@ class Separator:
             take = min(gi * hop, length - start)
             if take <= 0:             # the schedule over-covers the grid
                 break
-            span = (gi - 1) * hop + seg
-            piece = self._stage(song[:, start:start + span], span)
-            q, carry_acc, carry_w = self._run(
-                self._key("group", gi, seg, hop, n_stems, song=piece),
-                self._group_fn(gi, hop), piece, embs, scale_t,
-                self._scalar(start, torch.int64), length_t, carry_acc,
-                carry_w)
-            q = q.clone()
-            if cuda:
-                host = torch.empty(q.shape, dtype=torch.int16, pin_memory=True)
-                self._copy_stream.wait_stream(
-                    torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self._copy_stream):
-                    host.copy_(q, non_blocking=True)
-                q.record_stream(self._copy_stream)
-            else:
-                host = q
+            with profiling.span("atsm.pcm.group"):
+                span = (gi - 1) * hop + seg
+                piece = self._stage(song[:, start:start + span], span)
+                q, carry_acc, carry_w = self._run(
+                    self._key("group", gi, seg, hop, n_stems, song=piece),
+                    self._group_fn(gi, hop), piece, embs, scale_t,
+                    self._scalar(start, torch.int64), length_t, carry_acc,
+                    carry_w)
+                q = q.clone()
+                if cuda:
+                    host = torch.empty(q.shape, dtype=torch.int16,
+                                       pin_memory=True)
+                    self._copy_stream.wait_stream(
+                        torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(self._copy_stream):
+                        host.copy_(q, non_blocking=True)
+                    q.record_stream(self._copy_stream)
+                else:
+                    host = q
             pieces.append((start, host, take))
+            profiling.count("chunks.computed", gi)
+            # chunks whose start lies at or past the song's end (bucket
+            # padding): computed, and weighted zero
+            profiling.count("chunks.padded", gi - (take + hop - 1) // hop)
             start += gi * hop
         return pieces, scale
 

@@ -41,6 +41,7 @@ from ..nn import prng
 from ..nn.attention import MHA
 from ..ops import dsp
 from ..ops.select import Kernels, resolve
+from ..utils import profiling
 from . import clap_text, htdemucs
 
 MODEL_DIM = 384
@@ -316,9 +317,12 @@ def encode_text(model: AudioTextHTDemucs, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor, normalize: bool = False
                 ) -> torch.Tensor:
     """Frozen CLAP text embeddings (B, 512); ``normalize=True`` is
-    ``ClapModel.get_text_features``."""
+    ``ClapModel.get_text_features``.  Span ``atsm.model.text_tower``,
+    counter ``text.tower_runs``."""
     fn = clap_text.get_text_features if normalize else clap_text.text_embeds
-    return fn(model.clap, input_ids, attention_mask)
+    profiling.count("text.tower_runs")
+    with profiling.span("atsm.model.text_tower"):
+        return fn(model.clap, input_ids, attention_mask)
 
 
 def encode_mixture(model: AudioTextHTDemucs, wav: torch.Tensor,

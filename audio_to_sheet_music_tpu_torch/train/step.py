@@ -39,6 +39,7 @@ from ..models import atht
 from ..ops import losses
 from ..ops.select import Kernels
 from ..parallel.mesh import allreduce_mean_
+from ..utils import profiling
 
 Batch = Mapping[str, torch.Tensor]   # mixture (B,2,T), target (B,2,T),
                                      # input_ids (B,L), attention_mask (B,L)
@@ -166,27 +167,33 @@ def make_train_step(loss_cfg: Mapping[str, Any] | None = None,
     detached 0-d tensors on the device, ``grad_norm`` among them.  With
     ``data_parallel`` (a process group joined by
     ``parallel.init_data_parallel``), ``batch`` is this process's rows and
-    the gradients and metrics are averaged over the group."""
+    the gradients and metrics are averaged over the group.  Spans
+    ``atsm.train.step`` over ``atsm.train.forward``, ``atsm.train.backward``
+    (with the data-parallel averages) and ``atsm.train.optimizer``."""
     loss_cfg = dict(loss_cfg or {})
 
     def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
-        loss, metrics = _loss(state.model, batch, loss_cfg, compute_dtype,
-                              kernels)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if data_parallel:
-            params = state.optimizer.params
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            allreduce_mean_([p.grad for p in params])
-            names = list(metrics)
-            avg = torch.stack([metrics[k].float() for k in names])
-            allreduce_mean_([avg])
-            metrics = dict(zip(names, avg.unbind()))
-        metrics["grad_norm"] = state.optimizer.step()
-        state.step += 1
-        return metrics
+        with profiling.span("atsm.train.step"):
+            with profiling.span("atsm.train.forward"):
+                loss, metrics = _loss(state.model, batch, loss_cfg,
+                                      compute_dtype, kernels)
+            with profiling.span("atsm.train.backward"):
+                loss.backward()
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                if data_parallel:
+                    params = state.optimizer.params
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    allreduce_mean_([p.grad for p in params])
+                    names = list(metrics)
+                    avg = torch.stack([metrics[k].float() for k in names])
+                    allreduce_mean_([avg])
+                    metrics = dict(zip(names, avg.unbind()))
+            with profiling.span("atsm.train.optimizer"):
+                metrics["grad_norm"] = state.optimizer.step()
+            state.step += 1
+            return metrics
 
     return train_step
 

@@ -46,6 +46,7 @@ from ..models import atht
 from ..ops.select import Kernels
 from ..text.prompts import STEM_NAMES
 from ..text.tokenizer import default_tokenizer
+from ..utils import profiling
 from . import checkpoint as ckpt
 from .step import TrainState, make_eval_step, make_optimizer, make_train_step
 
@@ -151,10 +152,11 @@ def _train_loader(cfg: Config, tracks, tokenizer):
 def put_batch(raw: Mapping[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     """Host batch -> tensors on ``device`` (``stem_index`` stays on the
-    host)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                device, non_blocking=True)
-            for k, v in raw.items() if k != "stem_index"}
+    host).  Span ``atsm.train.put_batch``."""
+    with profiling.span("atsm.train.put_batch"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    device, non_blocking=True)
+                for k, v in raw.items() if k != "stem_index"}
 
 
 def _log_media(logger: MetricLogger, model, batch, raw, step: int,

@@ -1,73 +1,117 @@
-"""Timing and profiling helpers: the counterpart of
+"""Tracing, counting and profiling: the counterpart of
 ``audio_to_sheet_music_tpu/utils/profiling.py``.
 
-- ``timed``: warm-up calls, then the wall of ``iters`` calls, each ending
-  in ``torch.cuda.synchronize`` when the card is in use.
-- ``loop_cost``: the per-call seconds of a body as the slope between two
-  loop counts, which cancels the fixed cost of launching and synchronising.
+- ``span``: a named host interval at a layer boundary of the program.
+  While a ``torch.profiler`` session records it is
+  ``torch.profiler.record_function``, so it lands in the profiler's trace
+  beside the kernels, on their clock, nested by the calling thread's
+  stack; otherwise it is ``OFF``, one shared no-op.  The profiler is the
+  only switch.  Every name starts with ``atsm.``.  A thread the profiler
+  does not follow (the loader's producer, unless the profiler was started
+  with ``profile_all_threads``) records nothing.
+- ``count``, ``counts``, ``reset_counts``: process-wide event counters
+  (``counts()`` also carries the kernels' launch counters of
+  ``ops.select.launch_counts`` as ``launches.<kernel>``), which
+  ``apps/serve_http``'s ``/api/metrics`` exports.
 - ``trace``: ``torch.profiler`` around a block, a Chrome trace written into
   ``log_dir``.
 - ``flops_estimate``: ``torch.utils.flop_counter.FlopCounterMode``'s count
   for one call.
 - ``peak_tflops``: the card's dense bf16 tensor peak, the denominator of a
   utilisation and of ``chip_smoke.py``'s bounds.
+
+Spans and the counters they sit beside, by layer:
+
+- ``infer.session``: ``atsm.separate_all_pcm`` over the call, inside it
+  ``atsm.pcm.scale`` (the mixture's peak, the group schedule and the
+  groups' inputs), ``atsm.pcm.group`` a group (stage, program, clone, the
+  copy to the host enqueued), ``atsm.pcm.wait`` (the copy stream's
+  synchronise) and ``atsm.pcm.assemble`` (the pieces into the int16
+  array); counters ``chunks.computed`` (the chunks of the groups run) and
+  ``chunks.padded`` (those starting at or past the song's end).
+  ``atsm.sweep``: a whole-song program and its copy to the host.
+  ``text.cache_hits``: prompts whose embedding came from the cache.
+- ``models.atht.encode_text``: ``atsm.model.text_tower``;
+  ``text.tower_runs``.
+- ``infer.programs.Program``: ``atsm.program.capture`` (construction: on
+  a card the warm-up runs and the capture), ``atsm.program.replay`` (the
+  inputs' copies and the replay); ``program.captures`` (programs built)
+  and ``program.replays``.
+- ``infer.streaming.StreamingSeparator``: ``atsm.stream.open``,
+  ``atsm.stream.feed``, ``atsm.stream.block`` (one block's program, its
+  carry and its piece) and ``atsm.stream.flush``; ``stream.blocks``.
+- ``train.step``: ``atsm.train.step`` over ``atsm.train.forward``,
+  ``atsm.train.backward`` and ``atsm.train.optimizer`` (clip, AdamW,
+  schedule); ``train.trainer.put_batch``: ``atsm.train.put_batch``.
+- ``data.musdb.BatchLoader``: ``atsm.data.wait`` (the consumer waiting for
+  a batch) and ``atsm.data.make_batch`` (the producer thread).
+
+No span sits inside a captured program's body: a replay runs no Python.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable
+import threading
+from collections import Counter
+from typing import Callable, ContextManager, Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: dense bf16 tensor-core peaks (TFLOP/s) from the vendor's data sheet,
 #: keyed by a substring of ``torch.cuda.get_device_name``: the H100 SXM
 #: (the PCIe card, a lower peak, is not listed)
 PEAK_BF16_TFLOPS = {"H100 80GB HBM3": 989.0, "H100 SXM": 989.0}
 
+#: what ``span`` returns while no profiler records
+OFF = contextlib.nullcontext()
+
+_counts: Counter = Counter()
+_counts_lock = threading.Lock()
+
+
+def span(name: str) -> ContextManager:
+    """``with span("atsm.<layer>.<what>"):`` marks the block in a recording
+    profiler's trace; with none recording, the shared no-op ``OFF``."""
+    # the process-wide flag, not the calling thread's profiler state: a
+    # thread the profiler follows only under ``profile_all_threads`` (the
+    # loader's producer) reads its own state as off
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    with _counts_lock:
+        _counts[name] += n
+
+
+def counts() -> Dict[str, int]:
+    """Every counter of the process by name, the kernels' launch counters
+    (``ops.select.launch_counts``) among them as ``launches.<kernel>``."""
+    from ..ops import select
+
+    with _counts_lock:
+        out = dict(_counts)
+    out.update({f"launches.{k}": n for k, n in select.launch_counts().items()})
+    return out
+
+
+def reset_counts() -> None:
+    """Set every counter, the kernels' launch counters too, to 0."""
+    from ..ops import select
+
+    with _counts_lock:
+        _counts.clear()
+    select.zero_launch_counts()
+
 
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-
-
-def timed(fn: Callable, *args, warmup: int = 1, iters: int = 3) -> dict:
-    """-> ``{"mean_s", "best_s", "iters"}``: wall seconds per call after
-    ``warmup`` calls, each call ending in a device synchronise."""
-    for _ in range(warmup):
-        fn(*args)
-        _sync()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args)
-        _sync()
-        times.append(time.perf_counter() - t0)
-    return {"mean_s": sum(times) / len(times), "best_s": min(times),
-            "iters": iters}
-
-
-def loop_cost(body: Callable, *args, n1: int = 4, n2: int = 24,
-              iters: int = 3) -> float:
-    """Seconds per call of ``body(*args)`` without the fixed cost of a
-    timed region: the best wall of ``n1`` and of ``n2`` calls in a row
-    (interleaved ``iters`` times), and their slope
-    ``(T(n2) - T(n1)) / (n2 - n1)``."""
-    def run(n: int) -> float:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            body(*args)
-        _sync()
-        return time.perf_counter() - t0
-
-    run(n1)
-    best1 = best2 = float("inf")
-    for _ in range(iters):
-        best1 = min(best1, run(n1))
-        best2 = min(best2, run(n2))
-    return (best2 - best1) / (n2 - n1)
 
 
 @contextlib.contextmanager

@@ -214,6 +214,41 @@ class TestHttpServer:
                     if ln.startswith('atsm_requests_total{endpoint="separate"}'))
         assert int(line.rsplit(" ", 1)[1]) <= ep["requests"]
 
+    def test_metrics_carry_the_program_counters(self, server):
+        """``/api/metrics`` exports ``utils.profiling.counts`` in both forms:
+        an 8,000-sample song needs one chunk of the 2-chunk grid, run as one
+        group of 2 whose second chunk starts past the end."""
+        url, _ = server
+
+        def counters():
+            with urllib.request.urlopen(f"{url}/api/metrics?format=json",
+                                        timeout=30) as r:
+                return json.loads(r.read())["counters"]
+
+        before = counters()
+        req = urllib.request.Request(
+            f"{url}/api/separate_all?stems=vocals,drums",
+            data=_make_wav_bytes(t=8000),
+            headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=180) as r:
+            r.read()
+        after = counters()
+        delta = {k: v - before.get(k, 0) for k, v in after.items()}
+        assert delta["chunks.computed"] == 2 and delta["chunks.padded"] == 1
+        assert delta["program.replays"] == 1
+        assert after["program.captures"] >= 1
+        assert after["text.tower_runs"] >= 1
+
+        with urllib.request.urlopen(f"{url}/api/metrics", timeout=30) as r:
+            text = r.read().decode()
+        for name in ("program_captures", "program_replays", "text_tower_runs",
+                     "chunks_computed", "chunks_padded",
+                     "launches_layer_tail"):
+            assert f"# TYPE atsm_{name}_total counter" in text
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("atsm_chunks_computed_total "))
+        assert int(line.split(" ")[1]) >= after["chunks.computed"]
+
     def test_separate_all_zip(self, server):
         url, _ = server
         wav_bytes = _make_wav_bytes(t=SR // 4)
@@ -513,12 +548,20 @@ class TestParityWithJax:
             m.add_device(busy=1.5, wait=0.25)
             m.started = 1000.0
 
+        # the port adds its program counters (utils.profiling.counts) after
+        # the JAX service's lines; the rest is the same text
+        snap, jsnap = port.snapshot(), ref.snapshot()
+        counters = {"atsm_" + k.replace(".", "_") + "_total"
+                    for k in snap.pop("counters")}
+
         def fixed(text: str) -> str:
-            return "\n".join(ln for ln in text.splitlines()
-                             if not ln.startswith("atsm_uptime_seconds "))
+            return "\n".join(
+                ln for ln in text.splitlines()
+                if not ln.startswith("atsm_uptime_seconds ")
+                and ln.removeprefix("# HELP ").removeprefix("# TYPE ")
+                .split(" ")[0] not in counters)
 
         assert fixed(port.prometheus()) == fixed(ref.prometheus())
         assert port.prometheus().endswith("\n")
-        snap, jsnap = port.snapshot(), ref.snapshot()
         snap.pop("uptime_seconds"), jsnap.pop("uptime_seconds")
         assert snap == jsnap

@@ -274,20 +274,17 @@ def test_serve_builds_on_the_card_by_default(monkeypatch):
 
 def test_profiling_on_the_cpu(tmp_path):
     x = torch.randn(64, 64)
-    calls = []
 
     def fn(a):
-        calls.append(1)
-        return a @ a
+        with profiling.span("atsm.test.matmul"):
+            return a @ a
 
-    stats = profiling.timed(fn, x, warmup=2, iters=3)
-    assert len(calls) == 5 and stats["iters"] == 3
-    assert 0 < stats["best_s"] <= stats["mean_s"]
-    assert np.isfinite(profiling.loop_cost(fn, x, n1=1, n2=3, iters=2))
     with profiling.trace(str(tmp_path / "tr")) as prof:
         fn(x)
     assert prof is not None
-    assert json.loads((tmp_path / "tr" / "trace.json").read_text())
+    events = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    assert any(e.get("name") == "atsm.test.matmul"
+               for e in events["traceEvents"])
     assert profiling.flops_estimate(fn, x) == 2 * 64 ** 3
     assert profiling.peak_tflops("NVIDIA H100 80GB HBM3") == 989.0
     with pytest.raises(ValueError, match="no known bf16 peak"):
