@@ -284,7 +284,7 @@ def freq_decoder_apply(p: Decoder, x: torch.Tensor, skips: List[torch.Tensor],
     for i, layer in enumerate(p.layers):
         x = L.conv_transpose2d(layer.conv, x, stride=(4, 1), padding=(2, 0))
         if hasattr(layer, "norm"):
-            x = L.gelu(L.group_norm(layer.norm, x, 1))
+            x = L.group_norm(layer.norm, x, 1, act="gelu")
         if i < len(target_lengths) and x.shape[2] != target_lengths[i]:
             x = L.interpolate_bilinear(x, (target_lengths[i], x.shape[3]))
         if i < len(skips):
@@ -299,7 +299,7 @@ def time_decoder_apply(p: Decoder, x: torch.Tensor, skips: List[torch.Tensor],
     for i, layer in enumerate(p.layers):
         x = L.conv_transpose1d(layer.conv, x, stride=4, padding=2)
         if hasattr(layer, "norm"):
-            x = L.gelu(L.group_norm(layer.norm, x, 1))
+            x = L.group_norm(layer.norm, x, 1, act="gelu")
         if i < len(target_lengths) and x.shape[2] != target_lengths[i]:
             x = L.interpolate_linear(x, target_lengths[i])
         if i < len(skips):

@@ -243,9 +243,9 @@ def dconv_apply(dconv: DConv, x: torch.Tensor) -> torch.Tensor:
     for d, blk in enumerate(dconv.layers):
         dil = 2 ** d
         y = L.conv1d(blk.conv1, x, padding=dil, dilation=dil)
-        y = L.gelu(L.group_norm(blk.norm1, y, 1))
+        y = L.group_norm(blk.norm1, y, 1, act="gelu")
         y = L.conv1d(blk.conv2, y)
-        y = L.glu(L.group_norm(blk.norm2, y, 1), dim=1)
+        y = L.group_norm(blk.norm2, y, 1, act="glu")
         x = x + L.layer_scale(blk.scale, y)
     return x
 
@@ -362,7 +362,7 @@ def _n_heads(dim: int) -> int:
 
 def _group_norm_tokens(m: L.Norm, x: torch.Tensor) -> torch.Tensor:
     """MyGroupNorm(1, C) over a (B, L, C) token stream: stats over (L, C)."""
-    return L.group_norm(m, x.transpose(1, 2), 1).transpose(1, 2)
+    return L.group_norm(m, x, 1, layout="tokens")
 
 
 def _ff(layer: TransformerLayer, x: torch.Tensor) -> torch.Tensor:

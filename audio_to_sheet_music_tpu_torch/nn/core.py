@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fused_norm
 from . import prng
 
 
@@ -162,10 +163,30 @@ def conv_transpose2d(m: ConvTranspose2d, x: torch.Tensor, stride=(1, 1),
 
 
 def group_norm(m: Norm, x: torch.Tensor, num_groups: int,
-               eps: float = 1e-5) -> torch.Tensor:
-    """torch GroupNorm over (B, C, *spatial); stats and affine in f32."""
-    return F.group_norm(x.float(), num_groups, m.weight.float(),
-                        m.bias.float(), eps).to(x.dtype)
+               eps: float = 1e-5, act: str = "none",
+               layout: str = "channels") -> torch.Tensor:
+    """torch GroupNorm, stats and affine in f32, then ``act`` (``"none"``,
+    ``"gelu"``, ``"glu"`` over the channel halves).  ``layout``
+    ``"channels"``: (B, C, *spatial); ``"tokens"``: a (B, L, C) stream,
+    one group, stats over (L, C).
+
+    On the card every norm goes through ``ops.fused_norm.group_norm`` (the
+    norm and its activation in one kernel pair); elsewhere ``F.group_norm``
+    on f32, rounded to x's dtype, then the activation."""
+    if x.device.type == "cuda":
+        return fused_norm.group_norm(x, m.weight, m.bias, num_groups, eps, act,
+                                     layout)
+    fused_norm.geometry(x.shape, num_groups, act, layout)
+    tokens = layout == "tokens"
+    xc = x.transpose(1, 2) if tokens else x
+    y = F.group_norm(xc.float(), num_groups, m.weight.float(), m.bias.float(),
+                     eps).to(x.dtype)
+    y = y.transpose(1, 2) if tokens else y
+    if act == "gelu":
+        return gelu(y)
+    if act == "glu":
+        return glu(y, dim=1)
+    return y
 
 
 def layer_norm(m: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

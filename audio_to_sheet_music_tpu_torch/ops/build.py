@@ -6,7 +6,8 @@ interface (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of the source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and an unchanged one loads the library already there.  ``build_all`` starts one ``nvcc`` per source
-together and waits for all of them.
+together and waits for all of them; the first ``load`` that has to build
+builds every source at once.
 
 Nothing here runs at import: ``nvcc`` is only called when a kernel is
 first launched or ``build_all`` is called, so the modules import on a
@@ -108,11 +109,15 @@ def library_path(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library for ``csrc/<name>.cu``, built on first use."""
+    """The library for ``csrc/<name>.cu``, built on first use.  A build
+    compiles every source under ``csrc/`` that has no current library
+    (``build_all``), so a process that launches several kernels pays one
+    parallel build, not one build a kernel in turn."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all([name])
+            if not _target(name).exists():
+                build_all(sorted(p.stem for p in CSRC.glob("*.cu")))
             lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
         return lib

@@ -97,7 +97,9 @@ def verify_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
 
     Returns ``{"rms", "ref_rms", "ok", "threshold", "selection", "device",
     "card", "seconds", "launches"}`` (``launches``: the kernels the kernel
-    pass launched, by name, with their counts); raises nothing (that is
+    pass launched, by name, with their counts, leaving out those the per-op
+    pass launched too, such as GroupNorm's, which no selection chooses);
+    raises nothing (that is
     ``ensure_layer_parity``'s job).  ``forward(selection, *args)`` / ``args`` replace the default
     pair (tests inject a divergent path this way)."""
     sel = resolve(kernels)
@@ -106,11 +108,12 @@ def verify_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
     device = _device_of(model, args)
     t0 = time.perf_counter()
     with torch.inference_mode():
+        start = launch_counts()
         ref = forward(NONE, *args).detach().float().cpu().numpy()
         before = launch_counts()
         ker = forward(sel, *args).detach().float().cpu().numpy()
         launched = {k: n - before[k] for k, n in launch_counts().items()
-                    if n > before[k]}
+                    if n > before[k] and before[k] == start[k]}
     rms = float(np.sqrt(np.mean((ref - ker) ** 2)))
     return {
         "rms": rms,

@@ -12,11 +12,16 @@ reads no environment: every entry point takes a ``kernels`` argument that
 - ``"opt_in"``: ``enc`` + ``dconv`` + ``attn`` + ``stft`` with ``layer``
   off: ``ATSM_PALLAS_LAYER=0 ATSM_PALLAS_ATTN=1 ATSM_PALLAS_DCONV=1
   ATSM_PALLAS_STFT=1`` in the JAX package.
-- ``False``, ``None`` or ``"none"``: the per-op path, no kernel at all.
+- ``False``, ``None`` or ``"none"``: the per-op path, none of these five.
 
 The JAX precedence rules hold: ``layer`` subsumes ``attn``; with ``enc`` on,
 freq layer 0 goes whole into ``henc_freq_fused``, so ``dconv`` takes the
 freq DConv of the other layers; ``dconv`` never takes the time branch.
+
+GroupNorm is no part of the selection: on the card every norm of the
+model goes through ``fused_norm.group_norm`` under any selection, as any
+op follows its tensor's device.  Its launches are counted here with the
+others'.
 """
 
 from __future__ import annotations
@@ -71,16 +76,17 @@ def name(sel: KernelSelection) -> str:
 def _wrappers() -> Dict[str, object]:
     """Each kernel's wrapper, by kernel name; each counts its launches in
     its ``launches`` attribute."""
-    from . import fused_attn, fused_dconv, fused_enc, fused_stft
+    from . import fused_attn, fused_dconv, fused_enc, fused_norm, fused_stft
 
     return {"layer_tail": fused_attn.layer_tail,
             "henc_freq_fused": fused_enc.henc_freq_fused,
             "dconv_rows": fused_dconv.dconv_rows,
-            "attn_block": fused_attn.attn_block, "stft": fused_stft.stft}
+            "attn_block": fused_attn.attn_block, "stft": fused_stft.stft,
+            "group_norm": fused_norm.group_norm}
 
 
 def launch_counts() -> Dict[str, int]:
-    """The five kernels' launch counters in this process, by name."""
+    """Every kernel's launch counter in this process, by name."""
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 

@@ -6,7 +6,7 @@
 Phases, in order; a failed phase exits non-zero and prints no result:
 
 1. Preflight: the card's name and power limit (``nvidia-smi``), then all
-   five kernels built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
+   six kernel libraries built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
    csrc``, one process per source, all at once; each kernel's registers
    and spills (``ptxas -v``), the count of ``HGMMA`` (wgmma) instructions
    in the flash-attention launch and in every GEMM launch of the
@@ -31,7 +31,9 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    self 2688/2688, time self 1344/1344 and the two cross forms),
    ``henc_freq_fused`` at (16, 4, 2048, 336), ``dconv_rows`` at the freq
    encoder layers' and decoders' 128 x 384, 512 x 192, 2048 x 96 and
-   8192 x 48 rows by 336 frames, and the STFT at (32, 351232).  Each prints
+   8192 x 48 rows by 336 frames, and the STFT at (32, 351232).  Then the
+   GroupNorm pair (``ops/fused_norm``) at the main path's four norm shapes
+   in bf16 and f32, timed by the profiler's device time.  Each prints
    its max and rms error against the stated tolerance, and CUDA-event times
    for the kernel, the plain version and a PyTorch library call (or
    composition) computing the same function.
@@ -307,6 +309,20 @@ STFT_TOL = {"max_rel": 1e-4, "rms_rel": 1e-5, "reason": (
     "Stockham here, cuFFT in the plain version), whose rounding grows as "
     "eps x log2 N; 27x below the 2.7e-3 that made the JAX kernel refuse bf16 "
     "passes")}
+
+GN_TOL = {torch.bfloat16: {"max_rel": 2.0 ** -7, "rms_rel": 2.0 ** -9},
+          torch.float32: {"max_rel": 1e-5, "rms_rel": 1e-5},
+          "reason": (
+    "bf16: 1 output step of max|ref|, 1/2 of rms(ref): both round one f32 "
+    "value once, whose statistics differ in their summation order; f32: "
+    "1e-5 of max|ref| and rms(ref), that order alone")}
+# the main path's GroupNorm shapes: the freq decoder's widest norm (GELU),
+# the time DConv's widest GLU, a transformer norm_out's token stream, the
+# freq DConv's narrowest hidden norm over folded rows (GELU)
+GN_FORMS = [((16, 96, 1036, 259), "gelu", "channels"),
+            ((4, 96, 66150), "glu", "channels"),
+            ((4, 2072, 512), "none", "tokens"),
+            ((2048, 6, 259), "gelu", "channels")]
 
 
 class SmokeFailure(RuntimeError):
@@ -1021,6 +1037,80 @@ def check_stft(gen: torch.Generator) -> dict:
         "launches_per_step", F32_FLOPS, "one launch (one train step)")
 
 
+def _group_norm_row(gen: torch.Generator, shape: tuple, act: str,
+                    layout: str, dtype: torch.dtype) -> dict:
+    from audio_to_sheet_music_tpu_torch.ops import fused_norm
+
+    c = shape[-1] if layout == "tokens" else shape[1]
+    x = (0.7 + 2.0 * torch.randn(shape, generator=gen)).to("cuda", dtype)
+    w = (1.0 + 0.2 * torch.randn(c, generator=gen)).cuda()
+    b = (0.3 * torch.randn(c, generator=gen)).cuda()
+    tokens = layout == "tokens"
+
+    # the path before the kernel: F.group_norm on f32 (through transposes
+    # for the token form), rounded back, then the activation
+    def library():
+        xc = x.transpose(1, 2) if tokens else x
+        y = F.group_norm(xc.float(), 1, w, b, fused_norm.EPS).to(dtype)
+        y = y.transpose(1, 2) if tokens else y
+        return (F.gelu(y) if act == "gelu" else F.glu(y, dim=1)
+                if act == "glu" else y)
+
+    kernel = lambda: fused_norm.group_norm(x, w, b, 1, act=act,  # noqa: E731
+                                           layout=layout)
+    plain = lambda: fused_norm.group_norm_plain(  # noqa: E731
+        x, w, b, 1, act=act, layout=layout)
+    iters = 10 if x.numel() > 1e8 else 50
+    with torch.inference_mode():
+        got = kernel()
+        torch.cuda.synchronize()
+        err = compare(f"{shape} {act} {layout} {dtype}", got, plain(),
+                      GN_TOL[dtype])
+        # device time (the profiler's kernels): what a captured graph pays;
+        # a host-timed call at these sizes times the wrapper's Python
+        by_kernel = device_ms_by_kernel([kernel], 5)[0]
+        by_library = device_ms_by_kernel([library], 5)[0]
+        row = {"shape": list(shape), "act": act, "layout": layout,
+               "dtype": str(dtype), **err, "launches_per_group": 1,
+               "ms": sum(by_kernel.values()), "launch_ms": by_kernel,
+               "eager_ms": cuda_ms(kernel, iters),
+               "plain_ms": cuda_ms(plain, max(2, iters // 5)),
+               "library_ms": sum(by_library.values()),
+               "library_eager_ms": cuda_ms(library, iters)}
+    # bytes: x read once, the output written once (the pair reads x twice:
+    # pair_bound_ms)
+    nbytes = x.numel() * x.element_size() + got.numel() * got.element_size()
+    row.update(bound(0.0, nbytes, F32_FLOPS))
+    row["pair_bound_ms"] = ((nbytes + x.numel() * x.element_size())
+                            / MEMORY_BYTES_PER_S * 1e3)
+    _print_times(row)
+    print(f"    pair_bound_ms {row['pair_bound_ms']:.4f} (x read twice); "
+          f"host-timed: kernel {row['eager_ms']:.4f}, library "
+          f"{row['library_eager_ms']:.4f}; launches "
+          + ", ".join(f"{k.split('(')[0]} {v:.4f}"
+                      for k, v in by_kernel.items()))
+    return row
+
+
+def check_group_norm(gen: torch.Generator) -> dict:
+    """The GroupNorm kernel pair at the main path's shapes, bf16 (the
+    serving path's type) and f32, against its plain version; times in
+    bf16."""
+    print("group_norm at the main path's shapes:")
+    print(f"  tolerance: {GN_TOL['reason']}")
+    forms = []
+    for shape, act, layout in GN_FORMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = _group_norm_row(gen, shape, act, layout, dtype)
+            if dtype == torch.bfloat16:
+                forms.append(row)
+            torch.cuda.empty_cache()
+    return _kernel_entry(
+        "group_norm", "audio_to_sheet_music_tpu_torch/csrc/group_norm.cu",
+        "none: PyTorch's GroupNorm, one block a row", forms,
+        "launches_per_group", F32_FLOPS, "one launch a form (bf16)")
+
+
 def eval_stft(gen: torch.Generator) -> dict:
     rows, t, frames = EVAL_STFT
     print(f"stft, the eval path's form ({rows}, {t}), {frames} frames:")
@@ -1194,7 +1284,7 @@ def run_path(profile: bool) -> dict:
     pcm, scales = sep.separate_all_pcm(song)
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in _read_counters().items()
-                if k in ("layer_tail", "henc_freq_fused")}
+                if k in ("layer_tail", "henc_freq_fused", "group_norm")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
     rate = 4 * SONG_SECONDS / wall
@@ -3005,8 +3095,8 @@ def _default_and_opt_in(model, song: np.ndarray) -> dict:
           f"steps; rms against the default's separate_all per stem "
           f"{vs_default}; programs {out['opt_in']['programs']}")
     if (set(launches) != {"henc_freq_fused", "dconv_rows", "attn_block",
-                          "stft"} or diff != 0):
-        raise SmokeFailure("the opt-in group programs did not run rows 2-5 "
+                          "stft", "group_norm"} or diff != 0):
+        raise SmokeFailure("the opt-in group programs did not run rows 2-6 "
                            "or differ from the eager body")
     del sep
 
@@ -3318,7 +3408,7 @@ def main(argv: list) -> int:
         global BF16_TENSOR_FLOPS
         BF16_TENSOR_FLOPS = profiling.peak_tflops() * 1e12
         sources = ["layer_tail", "henc_freq", "dconv_rows", "attn_block",
-                   "stft"]
+                   "stft", "group_norm"]
         build_s = build.build_all(sources)
         print(f"kernels built in {build_s:.2f} s")
         compiled = check_build(sources)
@@ -3326,7 +3416,7 @@ def main(argv: list) -> int:
         gen = torch.Generator().manual_seed(SEED)
         kernels = [check_layer_tail(gen, profile), check_henc(gen, profile),
                    check_dconv(gen, profile), check_attn_block(gen, profile),
-                   check_stft(gen)]
+                   check_stft(gen), check_group_norm(gen)]
         k_eval = [eval_layer_tail(gen, profile), eval_henc(gen),
                   eval_dconv(gen), eval_attn_block(gen), eval_stft(gen)]
         for k, at_eval in zip(kernels, k_eval):

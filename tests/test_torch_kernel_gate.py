@@ -29,7 +29,7 @@ from audio_to_sheet_music_tpu.ops import kernel_gate as JG
 from audio_to_sheet_music_tpu_torch.convert import jax_params
 from audio_to_sheet_music_tpu_torch.infer.session import Separator
 from audio_to_sheet_music_tpu_torch.models import atht as TA
-from audio_to_sheet_music_tpu_torch.ops import fused_attn, kernel_gate
+from audio_to_sheet_music_tpu_torch.ops import fused_attn, fused_norm, kernel_gate
 from audio_to_sheet_music_tpu_torch.ops.select import DEFAULT, NONE, OPT_IN
 from audio_to_sheet_music_tpu_torch.parallel import make_mesh
 
@@ -173,6 +173,23 @@ def test_widths_no_kernel_takes_skip(as_if_on_a_card):
     assert res["launches"] == {} and "skipped" in res
     assert kernel_gate.ensure_layer_parity(
         None, forward=_diverging, args=ARGS) is None
+
+
+def test_kernels_of_the_per_op_pass_do_not_count(as_if_on_a_card,
+                                                 monkeypatch):
+    """A kernel that both passes launch (GroupNorm's, which follows the
+    device under every selection) is no kernel of the selection: a pass
+    that launched only it is kept as skipped."""
+    monkeypatch.setattr(fused_norm.group_norm, "launches", 0)
+
+    def norms(sel, x):
+        fused_norm.group_norm.launches += 2
+        return _diverging(sel, x)
+
+    assert kernel_gate.ensure_layer_parity(
+        None, forward=norms, args=ARGS) is None
+    res = kernel_gate.last_result()
+    assert res["launches"] == {} and "skipped" in res
 
 
 def test_gate_runs_where_a_kernel_launched(as_if_on_a_card):

@@ -333,10 +333,11 @@ def counters():
 
 def test_add_launch_counts(counters):
     select.add_launch_counts({"layer_tail": 40, "henc_freq_fused": 4})
-    select.add_launch_counts({"layer_tail": -10, "stft": 2})
+    select.add_launch_counts({"layer_tail": -10, "stft": 2,
+                              "group_norm": 5})
     assert select.launch_counts() == {
         "layer_tail": 30, "henc_freq_fused": 4, "dconv_rows": 0,
-        "attn_block": 0, "stft": 2}
+        "attn_block": 0, "stft": 2, "group_norm": 5}
     with pytest.raises(KeyError):
         select.add_launch_counts({"no_such_kernel": 1})
 
