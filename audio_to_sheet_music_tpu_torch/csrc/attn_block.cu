@@ -25,6 +25,20 @@
 //
 // The query tile is 64 rows, one consumer warpgroup (attn_common.cuh:flash
 // says why).
+//
+// attn_gated_launch: BS-RoFormer's attention block (models/bs_roformer.py),
+// the same two launches with the flash launch's gated form, γ = 1 and no
+// bias:
+//
+//   a   = bf16(concat_heads σ(gate_h) · softmax(q_h k_hᵀ / √64) v_h)
+//   out = bf16(x + a @ Woᵀ)
+//
+// with q and k already rotated (RoPE) and the gate's logits (B, L, heads)
+// bf16.  At a serving group of four 8 s chunks the time axis is 248
+// sequences of 801 tokens (2.6 TFLOP of products a launch, far above the
+// ridge) and the band axis 3,204 sequences of 62 tokens, one 64-row query
+// tile and one ragged 128-key tile each (0.4 TFLOP against ~0.8 GB of
+// operands: the out-projection's products and the bytes about equal).
 
 #include "attn_common.cuh"
 
@@ -46,3 +60,20 @@ extern "C" int attn_block_launch(const void* q, const void* k, const void* v,
       B * L, D, D, st);
 }
 
+// Launch on `stream`; the scratch `a` (B, L, D) bf16 as above, `ones` and
+// `zeros` (D,) f32 the epilogue's γ and bias.
+extern "C" int attn_gated_launch(const void* q, const void* k, const void* v,
+                                 const void* gate, const void* x,
+                                 const void* wo, const void* zeros,
+                                 const void* ones, void* a, void* out, int B,
+                                 int L, int D, float scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e = flash(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<bf16*>(a), B,
+                        L, L, D, scale, st, static_cast<const bf16*>(gate));
+  if (e != cudaSuccess) return (int)e;
+  return (int)gemm<EPI_RES_X>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(wo),
+      static_cast<const float*>(zeros), static_cast<const float*>(ones), x,
+      out, B * L, D, D, st);
+}

@@ -38,7 +38,9 @@
 //   Not done: persistent blocks, clusters with multicast W tiles, a TMA
 //   store of the result.
 // - flash_kernel / flash: o = per head softmax(q kᵀ · scale) v with 64-wide
-//   heads, on Hopper's asynchronous units.  One block per (64-row query
+//   heads (optionally each head's row gated by a sigmoid, for
+//   attn_block.cu's attn_gated_launch), on Hopper's asynchronous units.
+//   One block per (64-row query
 //   tile, head, batch row): one consumer warpgroup and one producer warp
 //   (flash says why not two consumer warpgroups).  The producer
 //   brings the block's Q tile in once by TMA and keeps 128-key K and V
@@ -272,18 +274,22 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a,
         "r"(scale_d));
 }
 
-// o (B, L, D) = per head softmax(q kᵀ · scale, keys past S masked) v.
-// Grid (ceil(L / 64), D / DH, B); one consumer warpgroup (threads 0 .. 127)
-// and one producer warp.  In the wgmma accumulator layout a
-// thread of warp w4 of its warpgroup holds rows 16 w4 + g and 16 w4 + g + 8
+// o (B, L, D) = per head softmax(q kᵀ · scale, keys past S masked) v;
+// GATED: each head's row times σ(gate (B, L, D / DH) bf16 logits) before
+// it is rounded, the gate of BS-RoFormer's attention (one sigmoid a row and
+// head, in f32).  Grid (ceil(L / 64), D / DH, B); one consumer warpgroup
+// (threads 0 .. 127) and one producer warp.  In the wgmma accumulator
+// layout a thread of warp w4 of its warpgroup holds rows 16 w4 + g and 16 w4 + g + 8
 // of the 64, columns 8 j + 2 t and 8 j + 2 t + 1 of every 8-wide piece j
 // (g = lane / 4, t = lane % 4): element 4 j + e is row g + 8 (e >> 1),
 // column 8 j + 2 t + (e & 1).
+template <bool GATED>
 __global__ void __launch_bounds__(128 + 32)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-             int L, int S, int D, float scale_log2) {
+             const bf16* __restrict__ gate, int L, int S, int D,
+             float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   // TMA with the 128-byte swizzle wants 1024-byte aligned tiles
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -417,8 +423,17 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     lrow[hr] += __shfl_xor_sync(0xffffffffu, lrow[hr], 1);
     lrow[hr] += __shfl_xor_sync(0xffffffffu, lrow[hr], 2);
   }
-  const float inva = 1.0f / lrow[0], invb = 1.0f / lrow[1];
+  float inva = 1.0f / lrow[0], invb = 1.0f / lrow[1];
   const int ra = q0 + w4 * 16 + g, rb = ra + 8;
+  if constexpr (GATED) {
+    const int heads = D / DH;
+    if (ra < L)
+      inva /= 1.0f + expf(-__bfloat162float(
+                         gate[((size_t)b * L + ra) * heads + hh]));
+    if (rb < L)
+      invb /= 1.0f + expf(-__bfloat162float(
+                         gate[((size_t)b * L + rb) * heads + hh]));
+  }
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int c = hh * DH + j * 8 + 2 * t4;
@@ -594,19 +609,22 @@ bool head_map(CUtensorMap* map, const void* ptr, int B, int rows, int D,
 // 8, 0.093 and 0.123 at a serving group of 4, the time self form 0.065 /
 // 0.080 and 0.035 / 0.045.  Two consumer warpgroups of ~124 registers (plus
 // the producer warp) leave one block an SM, where 64-row tiles run three.
+// A non-null `gate` (B, L, D / DH) launches the gated form.
 cudaError_t flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                  int L, int S, int D, float scale, cudaStream_t st) {
+                  int L, int S, int D, float scale, cudaStream_t st,
+                  const bf16* gate = nullptr) {
   CUtensorMap mq, mk, mv;
   if (!head_map(&mq, q, B, L, D, 64) || !head_map(&mk, k, B, S, D, KT) ||
       !head_map(&mv, v, B, S, D, KT))
     return cudaErrorInvalidValue;
   const int smem = 1024 + (64 + 2 * STAGES * KT) * ROW_BYTES +
                    8 * (1 + 3 * STAGES);
+  auto kernel = gate ? flash_kernel<true> : flash_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_kernel<<<dim3((L + 63) / 64, D / DH, B), 128 + 32, smem, st>>>(
-      mq, mk, mv, o, L, S, D, scale * 1.4426950408889634f);
+  kernel<<<dim3((L + 63) / 64, D / DH, B), 128 + 32, smem, st>>>(
+      mq, mk, mv, o, gate, L, S, D, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 

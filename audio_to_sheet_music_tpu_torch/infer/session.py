@@ -28,7 +28,8 @@ model on ``mesh.devices[i]`` (``_heads``); the chunk grid pads to a
 multiple of the mesh, the PCM groups round up to it, and the song, the
 overlap-add, the carry and the int16 pass stay on the first device.
 Construction runs the kernel parity gate (``ops.kernel_gate``) on each
-distinct device, once per selection and device in a process.
+distinct device, once per selection, device and model class in a
+process.
 
 Like the JAX package's ``_sweep_cache`` of jitted programs, the
 ``Separator`` keeps one program per chunk geometry (``infer.programs``):
@@ -72,6 +73,16 @@ app's, ``apps/serve.build_separator``) runs its chunk programs with
 ``torch.backends.cudnn.deterministic`` set, so a request repeats bit for
 bit; the flag is restored after each program, so training and evaluation
 in the same process keep cuDNN's free choice of algorithms.
+
+The model is either the text-conditioned ``AudioTextHTDemucs`` or a
+``models.bs_roformer.BSRoformer``.  Both run through the same sweeps,
+programs, overlap-add and int16 pass; they differ at two seams only.
+``_stem_embs`` turns the stem request into a program input: ATHT's text
+embeddings ``(S, 512)``, BS-RoFormer's indices ``(S,)`` of the model's own
+stems (any other name raises ``ValueError``).  ``_heads`` runs the
+encoder and the text-conditioned heads, or BS-RoFormer's forward and a
+pick of the requested stems.  BS-RoFormer takes no prompts
+(``text_embedding`` raises) and no ``mesh``.
 """
 
 from __future__ import annotations
@@ -84,7 +95,7 @@ from typing import Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models import atht
+from ..models import atht, bs_roformer
 from ..ops import kernel_gate, select
 from ..ops.select import NONE, Kernels, resolve
 from ..parallel import mesh as meshlib
@@ -145,9 +156,10 @@ def _to_float_song(song: torch.Tensor) -> torch.Tensor:
 
 
 class Separator:
-    """Text-conditioned full-song stem separation."""
+    """Full-song stem separation by a text-conditioned model or by
+    BS-RoFormer (see the module notes)."""
 
-    def __init__(self, model: atht.AudioTextHTDemucs,
+    def __init__(self, model: atht.AudioTextHTDemucs | bs_roformer.BSRoformer,
                  segment_seconds: float = chunked.DEFAULT_SEGMENT_SECONDS,
                  overlap_seconds: float = chunked.DEFAULT_OVERLAP_SECONDS,
                  compute_dtype: torch.dtype | None = None,
@@ -184,6 +196,10 @@ class Separator:
                 "port returns f32 stems (separate_pcm / separate_all_pcm are "
                 "its int16 paths)")
         self.wire_dtype = np.dtype(np.float32)
+        self._roformer = isinstance(model, bs_roformer.BSRoformer)
+        if mesh is not None and self._roformer:
+            raise ValueError("Separator: a BS-RoFormer model runs on one "
+                             "device; no mesh")
         if mesh is not None:
             if device is not None and meshlib.make_mesh(
                     [device]).devices[0] != mesh.devices[0]:
@@ -213,9 +229,11 @@ class Separator:
                              else torch.bfloat16)
         self.compute_dtype = compute_dtype
         self.normalize_text = normalize_text
-        self.pretrained = model.pretrained
-        self.tokenizer = tokenizer or default_tokenizer(
-            require_real=model.pretrained)
+        # BS-RoFormer has no text tower, so no tokenizer
+        self.pretrained = not self._roformer and model.pretrained
+        self.tokenizer = tokenizer or (None if self._roformer else
+                                       default_tokenizer(
+                                           require_real=model.pretrained))
         self.kernels = resolve(kernels)
         self.deterministic = deterministic
         self._emb_cache: Dict[str, torch.Tensor] = {}
@@ -235,6 +253,9 @@ class Separator:
     @torch.inference_mode()
     def text_embedding(self, prompt: str) -> torch.Tensor:
         """(512,) f32 CLAP embedding on the device, cached per prompt."""
+        if self._roformer:
+            raise TypeError("Separator: BS-RoFormer takes stem names, not "
+                            "text prompts")
         if prompt in self._emb_cache:
             profiling.count("text.cache_hits")
         else:
@@ -247,8 +268,20 @@ class Separator:
 
     def _stem_embs(self, stems: Sequence[str]) -> torch.Tensor:
         """(S, 512) embeddings of ``stems`` on the device, kept per stem
-        list (a program's input: a warm sweep launches no stack)."""
+        list (a program's input: a warm sweep launches no stack); for
+        BS-RoFormer the (S,) indices of ``stems`` among the model's own,
+        and ``ValueError`` for a name it does not have."""
         key = tuple(stems)
+        if self._roformer:
+            if key not in self._stems_cache:
+                own = self.model.stems
+                unknown = [s for s in key if s not in own]
+                if unknown:
+                    raise ValueError(f"Separator: this BS-RoFormer separates "
+                                     f"{list(own)}; no stem {unknown}")
+                self._stems_cache[key] = torch.tensor(
+                    [own.index(s) for s in key], device=self.device)
+            return self._stems_cache[key]
         if key in self._stems_cache:
             profiling.count("text.cache_hits", len(key))
         else:
@@ -270,6 +303,10 @@ class Separator:
         synchronise; ``ops.dsp.istft`` skips ``torch.istft``'s host-side
         check), so on distinct cards the replicas run at once."""
         sel = self.kernels if kernels is None else kernels
+        if self._roformer:
+            out = bs_roformer.forward(self.model, chunks, self.compute_dtype,
+                                      sel).index_select(1, embs)
+            return out.reshape(out.shape[0], -1, out.shape[-1])
         devices = self._slices.devices
         with cudnn_deterministic(self.deterministic):
             encs = [atht.encode_mixture(self._replicas[dev], piece,
@@ -400,6 +437,8 @@ class Separator:
         """(2, T) mixture (float32 or int16 PCM) + free-text prompt ->
         (2, T) float32 stem: 6 s chunks, linear cross-fade overlap-add,
         weight renormalisation."""
+        if self._roformer:
+            return self._sweep(mixture, self._stem_embs([prompt]))
         return self._sweep(mixture, self.text_embedding(prompt)[None])
 
     @torch.inference_mode()
@@ -411,7 +450,8 @@ class Separator:
         twice, to its shared-scale wire format and then to this level; one
         rounding here, so the two differ by at most one step while the
         stem's peak stays under 1.)"""
-        emb = self.text_embedding(prompt)[None]
+        emb = (self._stem_embs([prompt]) if self._roformer
+               else self.text_embedding(prompt)[None])
         with profiling.span("atsm.sweep"):
             out = self._sweep_on_device(mixture, emb)
             q = torch.clamp(torch.round(out * 32767.0), -32767, 32767)

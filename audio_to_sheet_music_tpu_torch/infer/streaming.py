@@ -56,6 +56,10 @@ class StreamingSeparator:
 
     def __init__(self, separator, stems: Sequence[str] = STEM_NAMES,
                  block_chunks: int = 8):
+        if separator._roformer:
+            raise ValueError("StreamingSeparator: BS-RoFormer is served "
+                             "whole-song only (separate_all_pcm, "
+                             "separate_pcm)")
         with profiling.span("atsm.stream.open"):
             self.sep = separator
             self.stems = list(stems)

@@ -105,6 +105,14 @@ class Norm(nn.Module):
         self.bias = _full((dim,), 0.0)
 
 
+class RMSNorm(nn.Module):
+    """lucidrains' ``RMSNorm``: a learned per-channel ``gamma`` (ones)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = _full((dim,), 1.0)
+
+
 class LayerScale(nn.Module):
     """demucs LayerScale: a learned per-channel scale."""
 
@@ -193,6 +201,62 @@ def layer_norm(m: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """torch LayerNorm over the last dim; stats and affine in f32."""
     return F.layer_norm(x.float(), (x.shape[-1],), m.weight.float(),
                         m.bias.float(), eps).to(x.dtype)
+
+
+def rms_normalize(x: torch.Tensor) -> torch.Tensor:
+    """lucidrains' ``RMSNorm`` with its gamma left to the caller: ``x /
+    max(‖x‖₂, 1e-12) · √d`` over the last dim, which is ``x / max(rms(x),
+    1e-12 / √d)``; here ``F.rms_norm`` with ``eps`` ``1e-24 / d`` in its
+    place (the two differ only for rows of norm near 1e-12).  Statistics
+    in f32, the result in x's dtype: one fused launch on the card.  The
+    callers fold gamma into the product that follows (``W·diag(γ)``)."""
+    d = x.shape[-1]
+    return F.rms_norm(x, (d,), eps=1e-24 / d)
+
+
+def rms_scale(x: torch.Tensor, gamma: torch.Tensor,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x / max(‖x‖₂, 1e-12) · √d · γ`` over the last dim (``F.normalize``
+    times the scale, as lucidrains' ``RMSNorm``) in f32, ``gamma``
+    broadcasting against ``x`` (one norm's, or a stack of several norms'
+    gammas); the result in ``dtype`` (default x's)."""
+    xf = x.float()
+    norm = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+    y = xf / norm.clamp(min=1e-12) * (math.sqrt(x.shape[-1]) * gamma.float())
+    return y.to(x.dtype if dtype is None else dtype)
+
+
+# rotary_embedding_torch's base, BS-RoFormer's
+ROPE_THETA = 10000.0
+
+
+@functools.lru_cache(maxsize=64)
+def rope_rotation(length: int, dim: int, device: torch.device
+                  ) -> torch.Tensor:
+    """``exp(i·p·θ^(-2j/dim))`` for positions ``p < length`` and pairs ``j <
+    dim / 2``, θ ``ROPE_THETA``: complex64 ``(length, 1, dim // 2)``, the
+    angles in f32 as ``rotary_embedding_torch`` computes them.  Kept per
+    geometry and device (made outside inference mode) as ``_lerp_src``
+    keeps its taps."""
+    with torch.inference_mode(False):
+        freqs = 1.0 / (ROPE_THETA ** (torch.arange(0, dim, 2, device=device)
+                                      .float() / dim))
+        angles = torch.arange(length, device=device).float()[:, None] * freqs
+        return torch.polar(torch.ones_like(angles), angles)[:, None, :]
+
+
+def rope(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """Rotary position embedding over the sequence axis (-2) of ``x``
+    ``(B, L, heads·dh)``, every head's ``dh`` dimensions rotated in
+    interleaved pairs ``(x[2j], x[2j+1])`` by angle ``p·θ^(-2j/dh)``
+    (``rotary_embedding_torch``'s default), positions 0..L-1.  Computed
+    in f32 as one complex product; the result contiguous, in x's dtype."""
+    b, length, d = x.shape
+    rot = rope_rotation(length, d // heads, x.device)
+    pairs = torch.view_as_complex(
+        x.float().reshape(b, length, heads, d // heads // 2, 2))
+    out = torch.view_as_real(pairs * rot).reshape(b, length, d)
+    return out.to(x.dtype).contiguous()
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

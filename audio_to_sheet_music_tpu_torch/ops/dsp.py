@@ -76,22 +76,25 @@ def stft(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,
 
 
 def istft(z: torch.Tensor, length: int, n_fft: int = 4096,
-          hop: int = 1024) -> torch.Tensor:
+          hop: int = 1024, normalized: bool = True) -> torch.Tensor:
     """Inverse of ``stft``: complex ``(..., F, frames)`` -> ``(..., length)``.
 
-    ``torch.istft(center=True, normalized=True, length=length)`` written
-    out in its own steps (an orthonormal inverse real FFT a frame, the
-    Hann window, overlap-add by ``fold``, the centre trimmed, division by
-    the squared window's overlap-add), without its check that the
-    envelope is nowhere near zero: that check reads a value back to the
-    host, so the host would wait for the card in every head, one replica
-    after another on a mesh.  The periodic Hann window at ``hop <=
-    n_fft / 2`` overlaps itself everywhere inside the trimmed span."""
+    ``torch.istft(center=True, normalized=normalized, length=length)``
+    written out in its own steps (an inverse real FFT a frame, orthonormal
+    when ``normalized``, else scaled by ``1 / n_fft``, the Hann window,
+    overlap-add by ``fold``, the centre trimmed, division by the squared
+    window's overlap-add), without its check that the envelope is nowhere
+    near zero: that check reads a value back to the host, so the host
+    would wait for the card in every head, one replica after another on a
+    mesh.  The periodic Hann window at ``hop <= n_fft / 2`` overlaps
+    itself everywhere inside the trimmed span, whether or not the hop
+    divides the window."""
     lead = z.shape[:-2]
     zz = z.reshape(-1, *z.shape[-2:]).transpose(1, 2)    # (B, frames, F)
     n_frames = zz.shape[1]
     win = _window(n_fft, z.device)
-    frames = torch.fft.irfft(zz, n=n_fft, dim=-1, norm="ortho")
+    frames = torch.fft.irfft(zz, n=n_fft, dim=-1,
+                             norm="ortho" if normalized else "backward")
     total = n_fft + hop * (n_frames - 1)
 
     def overlap_add(cols: torch.Tensor) -> torch.Tensor:

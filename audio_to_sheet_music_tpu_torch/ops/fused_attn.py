@@ -30,11 +30,21 @@ launch and the out-projection GEMM of ``csrc/attn_common.cuh``, which
 ``mha_residual`` projects Q/K/V (torch matmuls, as the JAX package leaves
 them to XLA) and calls it from an attention module's parameters.
 ``attn_block.launches`` counts its launches.
+
+``attn_gated`` is BS-RoFormer's attention block (``models.bs_roformer``),
+which has no counterpart in the JAX package: ``x + (concat_h σ(g_h) ·
+softmax(q kᵀ/√64)·v)·Woᵀ`` per query row, self attention over rotated q
+and k, a sigmoid gate per token and head (its logits ``g``), no bias.  It
+is ``csrc/attn_block.cu``'s ``attn_gated_launch``: the same flash launch
+(its gated form) and out-projection GEMM as ``attn_block``.
+``attn_gated_plain`` is its plain version; ``attn_gated.launches`` counts
+its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -96,6 +106,18 @@ def attn_block_plain(q, k, v, x, wo, bo, gamma, num_heads: int
     attn = attention_plain(q, k, v, num_heads)
     out = x.float() + gamma.float() * (_mm(attn, wo, dt) + bo.float())
     return out.to(dt)
+
+
+def attn_gated_plain(q, k, v, gate, x, wo, num_heads: int) -> torch.Tensor:
+    """The gated attention block in plain PyTorch ops; same contract as
+    ``attn_gated``.  Rounds to the input dtype where the kernel does,
+    within a rounding: the softmax probabilities, the gated heads."""
+    dt = q.dtype
+    b, l, d = q.shape
+    attn = attention_plain(q, k, v, num_heads).float().reshape(
+        b, l, num_heads, d // num_heads)
+    gated = (attn * torch.sigmoid(gate.float())[..., None]).reshape(b, l, d)
+    return (x.float() + _mm(gated.to(dt), wo, dt)).to(dt)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device,
@@ -242,6 +264,66 @@ def attn_block(q, k, v, x, wo, bo, gamma, num_heads: int) -> torch.Tensor:
 
 
 attn_block.launches = 0
+
+
+def _gated_lib() -> ctypes.CDLL:
+    lib = build.load("attn_block")
+    if not getattr(lib, "_gated_bound", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attn_gated_launch.argtypes = [p] * 10 + [i] * 3 + [f, p]
+        lib.attn_gated_launch.restype = i
+        lib._gated_bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _unit_affine(d: int, device: torch.device) -> tuple:
+    """(zeros, ones) (d,) f32 on ``device``: the GEMM epilogue's bias and
+    γ for a block without either.  Kept per width and device, made
+    outside inference mode, so a captured program reads the same ones."""
+    with torch.inference_mode(False):
+        return (torch.zeros(d, device=device),
+                torch.ones(d, device=device))
+
+
+def attn_gated(q, k, v, gate, x, wo, num_heads: int) -> torch.Tensor:
+    """``x + (concat_h σ(gate_h)·softmax(q_h k_hᵀ/√dh)·v_h)·Woᵀ`` ->
+    (B, L, D): self attention, no bias, no LayerScale.
+
+    q, k, v, x: (B, L, D), q and k already rotated; gate: (B, L, heads)
+    logits; wo (D, D) in torch layout.  CPU tensors take
+    ``attn_gated_plain``.  CUDA tensors launch the kernel: everything
+    bf16 and contiguous, 64-wide heads, nothing requiring grad, else this
+    raises."""
+    if q.device.type == "cpu":
+        return attn_gated_plain(q, k, v, gate, x, wo, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"attn_gated: no kernel for device {q.device}")
+    bsz, l, d = q.shape
+    if num_heads * _HEAD_DIM != d or d % _TILE:
+        raise ValueError(f"attn_gated: unsupported D={d}, heads={num_heads}")
+    if l < 1:
+        raise ValueError("attn_gated: empty sequence")
+    build.check_no_grad("attn_gated", q, k, v, gate, x, wo)
+    bf, dev = torch.bfloat16, q.device
+    for name, t, shape in (
+            ("q", q, (bsz, l, d)), ("k", k, (bsz, l, d)),
+            ("v", v, (bsz, l, d)), ("gate", gate, (bsz, l, num_heads)),
+            ("x", x, (bsz, l, d)), ("wo", wo, (d, d))):
+        _check(name, t, bf, shape, dev, "attn_gated")
+    zeros, ones = _unit_affine(d, dev)
+    a = torch.empty_like(q)
+    out = torch.empty_like(q)
+    build.launch(
+        "attn_gated", dev, _gated_lib().attn_gated_launch,
+        *(t.data_ptr() for t in (q, k, v, gate, x, wo, zeros, ones, a, out)),
+        bsz, l, d, 1.0 / math.sqrt(d // num_heads),
+        torch.cuda.current_stream(dev).cuda_stream)
+    attn_gated.launches += 1
+    return out
+
+
+attn_gated.launches = 0
 
 
 def mha_residual(attn, gamma, x_res: torch.Tensor, q_in: torch.Tensor,

@@ -12,8 +12,8 @@ threshold, the selection and the card.  The JAX gate vetoes the kernel and
 falls back to the per-op path; the port allows no fallback that hides a
 kernel, so a session whose kernels diverge does not start.
 
-The gate runs once per process for each (selection, device) pair and
-covers whatever selection it is given (the JAX gate covers ``layer`` +
+The gate runs once per process for each (selection, device, model class)
+and covers whatever selection it is given (the JAX gate covers ``layer`` +
 ``enc``, its default).  It skips where no kernel would run or be checked:
 a CPU device (the wrappers take their plain versions there), the ``none``
 selection, a card where the kernel pass launched no kernel (the model's
@@ -22,6 +22,11 @@ launch counters say so, ``select.launch_counts``), and
 ``ATSM_SKIP_PARITY_GATE=1``, the JAX package's own opt-out.
 ``verify_layer_parity`` reads no environment: the selection is an
 argument.
+
+For a BS-RoFormer (``models.bs_roformer``) the forward is one of its
+layers, whose RoPE and attention the selection sends to
+``fused_rope.rope_qkv`` and ``fused_attn.attn_gated``
+(``_roformer_pair``).
 
 Call site: ``infer.session.Separator`` construction, on each distinct
 device of its mesh.
@@ -43,8 +48,9 @@ RMS_THRESHOLD = 1e-3      # ~0.1 dB-budget grade on unit-order stems
 GATE_SECONDS = 6.0        # one serving chunk (the shapes that matter)
 SAMPLE_RATE = 44100
 
-# (selection, device) -> the gate's result, once per process
-_RESULTS: Dict[Tuple[KernelSelection, str], Dict] = {}
+# (selection, device, model class) -> the gate's result, once per process:
+# ATHT and BS-RoFormer launch different kernels
+_RESULTS: Dict[Tuple[KernelSelection, str, str], Dict] = {}
 _LAST: Optional[Dict] = None
 
 
@@ -68,12 +74,36 @@ def _device_of(model, args) -> torch.device:
     return torch.device("cpu")
 
 
+def _roformer_pair(model, compute_dtype) -> Tuple[Callable, tuple]:
+    """``(forward, args)`` for a BS-RoFormer: its first layer (the time and
+    the band transformer, every kernel launch of a layer) over the
+    seeded unit-rms token grid of a 6 s chunk.  The layer's output is of
+    unit order (its branches read RMS-normed tokens), so the gate compares
+    a tenth of it, the scale of the stems the threshold was set on."""
+    from ..models import bs_roformer
+
+    device = _device_of(model, None)
+    cfg = model.cfg
+    frames = int(GATE_SECONDS * SAMPLE_RATE) // cfg.hop + 1
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, frames, len(cfg.freqs_per_bands), cfg.dim)).astype(np.float32))
+
+    def fwd(sel, m, tokens):
+        return 0.1 * bs_roformer.layer_forward(m, 0, tokens, sel).float()
+
+    return fwd, (model, x.to(device, compute_dtype))
+
+
 def _default_pair(model, compute_dtype) -> Tuple[Callable, tuple]:
     """``(forward, args)`` for the gate: the text-conditioned forward of one
     seeded 6 s chunk at 0.1 rms and a seeded unit-scale embedding, on the
-    model's device; ``forward(selection, *args)``."""
-    from ..models import atht
+    model's device; ``forward(selection, *args)``.  A BS-RoFormer takes
+    ``_roformer_pair``."""
+    from ..models import atht, bs_roformer
 
+    if isinstance(model, bs_roformer.BSRoformer):
+        return _roformer_pair(model, compute_dtype)
     device = _device_of(model, None)
     rng = np.random.default_rng(0)
     t = int(GATE_SECONDS * SAMPLE_RATE)
@@ -141,7 +171,8 @@ def ensure_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
     ``none`` selection, the default pair on a CPU device, and a card where
     the kernel pass launched nothing: that result is kept with a
     ``skipped`` reason), else the result (cached after the first run for
-    the same selection and device; a cached failure raises again)."""
+    the same selection, device and model class; a cached failure raises
+    again)."""
     global _LAST
     if os.environ.get("ATSM_SKIP_PARITY_GATE") == "1":
         return None
@@ -151,7 +182,7 @@ def ensure_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
     device = _device_of(model, args)
     if forward is None and device.type == "cpu":
         return None
-    key = (sel, str(device))
+    key = (sel, str(device), type(model).__name__)
     res = _RESULTS.get(key)
     if res is None:
         res = verify_layer_parity(model, compute_dtype, threshold, sel,

@@ -14,6 +14,10 @@ reads no environment: every entry point takes a ``kernels`` argument that
   ATSM_PALLAS_STFT=1`` in the JAX package.
 - ``False``, ``None`` or ``"none"``: the per-op path, none of these five.
 
+BS-RoFormer (``models.bs_roformer``, no JAX counterpart) sends its
+attention to ``fused_attn.attn_gated`` and its RoPE to
+``fused_rope.rope_qkv`` where ``layer`` or ``attn`` is on.
+
 The JAX precedence rules hold: ``layer`` subsumes ``attn``; with ``enc`` on,
 freq layer 0 goes whole into ``henc_freq_fused``, so ``dconv`` takes the
 freq DConv of the other layers; ``dconv`` never takes the time branch.
@@ -76,13 +80,16 @@ def name(sel: KernelSelection) -> str:
 def _wrappers() -> Dict[str, object]:
     """Each kernel's wrapper, by kernel name; each counts its launches in
     its ``launches`` attribute."""
-    from . import fused_attn, fused_dconv, fused_enc, fused_norm, fused_stft
+    from . import (fused_attn, fused_dconv, fused_enc, fused_norm, fused_rope,
+                   fused_stft)
 
     return {"layer_tail": fused_attn.layer_tail,
             "henc_freq_fused": fused_enc.henc_freq_fused,
             "dconv_rows": fused_dconv.dconv_rows,
             "attn_block": fused_attn.attn_block, "stft": fused_stft.stft,
-            "group_norm": fused_norm.group_norm}
+            "group_norm": fused_norm.group_norm,
+            "attn_gated": fused_attn.attn_gated,
+            "rope_qkv": fused_rope.rope_qkv}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -33,6 +33,9 @@ Spans and the counters they sit beside, by layer:
   ``text.cache_hits``: prompts whose embedding came from the cache.
 - ``models.atht.encode_text``: ``atsm.model.text_tower``;
   ``text.tower_runs``.
+- ``models.bs_roformer.forward``: ``atsm.model.bs_roformer`` on an eager
+  forward (warm-up, the CPU, eager callers; none while a CUDA graph
+  captures it); its attention launches are ``launches.attn_gated``.
 - ``infer.programs.Program``: ``atsm.program.capture`` (construction: on
   a card the warm-up runs and the capture), ``atsm.program.replay`` (the
   inputs' copies and the replay); ``program.captures`` (programs built)

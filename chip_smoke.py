@@ -6,11 +6,11 @@
 Phases, in order; a failed phase exits non-zero and prints no result:
 
 1. Preflight: the card's name and power limit (``nvidia-smi``), then all
-   six kernel libraries built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
+   seven kernel libraries built with ``nvcc`` from ``audio_to_sheet_music_tpu_torch/
    csrc``, one process per source, all at once; each kernel's registers
    and spills (``ptxas -v``), the count of ``HGMMA`` (wgmma) instructions
-   in the flash-attention launch and in every GEMM launch of the
-   ``attn_block`` and ``layer_tail`` libraries, and of ``HMMA`` (mma.sync)
+   in the flash-attention launch (both its forms, plain and gated) and in
+   every GEMM launch of the ``attn_block`` and ``layer_tail`` libraries, and of ``HMMA`` (mma.sync)
    instructions in each launch of the DConv routine (``conv1_kernel``,
    ``conv2_stats_kernel``, ``apply_kernel``) of the ``dconv_rows`` and
    ``henc_freq`` libraries and in ``henc_freq``'s ``henc_conv_kernel`` and
@@ -33,7 +33,14 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    encoder layers' and decoders' 128 x 384, 512 x 192, 2048 x 96 and
    8192 x 48 rows by 336 frames, and the STFT at (32, 351232).  Then the
    GroupNorm pair (``ops/fused_norm``) at the main path's four norm shapes
-   in bf16 and f32, timed by the profiler's device time.  Each prints
+   in bf16 and f32, timed by the profiler's device time.  Then
+   BS-RoFormer's two launches at its serving group's axes (four 8 s
+   chunks: 248 sequences of 801 frames, 3,204 of 62 bands, width 512):
+   ``attn_gated`` (the gated flash launch and the out-projection GEMM)
+   against ``attn_gated_plain`` and ``scaled_dot_product_attention`` with
+   cuBLAS, and ``rope_qkv`` against ``rope_qkv_plain`` (q, k and v each;
+   v equal bit for bit), with CUDA-event times and their bounds from
+   ``port_bench/roformer_work``.  Each prints
    its max and rms error against the stated tolerance, and CUDA-event times
    for the kernel, the plain version and a PyTorch library call (or
    composition) computing the same function.
@@ -195,6 +202,16 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    streamed at ``block=8`` and at the autotuned block through the server's
    feed loop without HTTP: first audio, wall, rate, and 1e-3 rms against
    ``separate``; the card's ``nvidia-smi`` name and power limit.
+11. BS-RoFormer (after phase 10; numbers under ``bs_roformer``): the
+   published widths (``models.bs_roformer.PUBLISHED``, seed 0) in a
+   deterministic ``Separator`` at the ``bs_roformer.songs-vocals`` cell's
+   8 s chunks and 6 s overlap: its kernel gate must have run one layer's
+   ``attn_gated`` and ``rope_qkv`` (two each), a stem it does not have
+   must raise; the 60 s song's vocals through ``separate_all_pcm`` in
+   groups of four, warm (captures included), then with the launch
+   counters set to 0 just before and read just after: exactly
+   ``attn_gated`` and ``rope_qkv``, 24 each a group, through replays;
+   int16, not silent; the wall, the rate and the peak device memory.
 
 ``python3 chip_smoke.py --profile`` adds, in phase 2, how each
 ``layer_tail`` form's device time splits between its six launches (Q GEMM,
@@ -223,7 +240,8 @@ from the path that runs it: the serving sweep for ``layer_tail`` and
 same numbers at the eval path's shapes, with ``eval_launches`` from its
 default sweep for the first two and its opt-in sweep for the others;
 ``stream_launches`` from phase 6's streaming request at ``block=auto``;
-``learn_launches`` from phase 9's training and evaluation;
+``learn_launches`` from phase 9's training and evaluation; for
+``attn_gated`` and ``rope_qkv`` ``launches`` from phase 11's call;
 ``stream_*`` for ``layer_tail`` and ``henc_freq_fused`` the numbers at the
 stream's block shapes, means per launch over phase 6's two streams), and
 ``{"ok": true, "device": {...}}``.  The same numbers, with each form's and
@@ -323,6 +341,18 @@ GN_FORMS = [((16, 96, 1036, 259), "gelu", "channels"),
             ((4, 96, 66150), "glu", "channels"),
             ((4, 2072, 512), "none", "tokens"),
             ((2048, 6, 259), "gelu", "channels")]
+
+# BS-RoFormer (models.bs_roformer, published widths) on the serving path of
+# bs_roformer.songs-vocals: 8 s chunks at hop 2 s in groups of four; each
+# axis of a group as (form, B, L): 4 x 62 band sequences of 801 frames, and
+# 4 x 801 frame sequences of 62 bands; each kernel launches once an axis a
+# layer (12 layers)
+ROFORMER_SEGMENT, ROFORMER_OVERLAP, ROFORMER_GROUP = 8.0, 6.0, 4
+ROFORMER_FORMS = [("time", 4 * 62, 801, 12), ("band", 4 * 801, 62, 12)]
+ROPE_TOL = {"max_rel": 2.0 ** -7, "rms_rel": 2.0 ** -9, "reason": (
+    "1 bf16 step of max|ref|, 1/2 of rms(ref): both turn each pair by the "
+    "same f32 angle and round once; the kernel's product may contract to a "
+    "fused multiply-add")}
 
 
 class SmokeFailure(RuntimeError):
@@ -1109,6 +1139,101 @@ def check_group_norm(gen: torch.Generator) -> dict:
         "group_norm", "audio_to_sheet_music_tpu_torch/csrc/group_norm.cu",
         "none: PyTorch's GroupNorm, one block a row", forms,
         "launches_per_group", F32_FLOPS, "one launch a form (bf16)")
+
+
+def _gated_library(q, k, v, gate, x, wo):
+    """BS-RoFormer's gated attention block as PyTorch library calls in bf16
+    (``scaled_dot_product_attention``, cuBLAS): the yardstick only."""
+    bsz, l, _ = q.shape
+    heads = lambda t: t.view(bsz, l, HEADS, D // HEADS).transpose(1, 2)  # noqa: E731
+    a = F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+    a = a * torch.sigmoid(gate.float()).to(q.dtype).transpose(1, 2)[..., None]
+    return x + F.linear(a.transpose(1, 2).reshape(bsz, l, D), wo)
+
+
+def check_attn_gated(gen: torch.Generator) -> dict:
+    """``attn_gated`` (the gated flash launch, then the out-projection
+    GEMM with the residual) against its plain version at the BS-RoFormer
+    cell's two axes; CUDA-event times (a launch takes ~1 ms here, far more
+    than the wrapper's host time)."""
+    from audio_to_sheet_music_tpu_torch.ops import fused_attn
+    from port_bench import roformer_work
+
+    print("attn_gated at BS-RoFormer's serving group (4 chunks of 8 s), "
+          "D=512, 8 heads, bf16:")
+    print(f"  tolerance: {LAYER_TOL['reason']}")
+    forms = []
+    for name, b, l, n in ROFORMER_FORMS:
+        def bf(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen) * scale).to(
+                "cuda", torch.bfloat16).contiguous()
+        args = [bf(b, l, D), bf(b, l, D), bf(b, l, D), bf(b, l, HEADS),
+                bf(b, l, D), bf(D, D, scale=D ** -0.5)]
+        kernel = lambda: fused_attn.attn_gated(*args, HEADS)  # noqa: E731
+        with torch.inference_mode():
+            got = kernel()
+            torch.cuda.synchronize()
+            err = compare(f"{name} B={b} L={l}", got,
+                          fused_attn.attn_gated_plain(*args, HEADS), LAYER_TOL)
+            row = {"form": name, "B": b, "L": l, "launches_per_group": n,
+                   **err, "ms": cuda_ms(kernel, 10),
+                   "plain_ms": cuda_ms(lambda: fused_attn.attn_gated_plain(
+                       *args, HEADS), 3),
+                   "library_ms": cuda_ms(lambda: _gated_library(*args), 10)}
+        row.update(bound(*roformer_work.gated_attn_work(b, l, D, HEADS),
+                         BF16_TENSOR_FLOPS))
+        _print_times(row)
+        forms.append(row)
+        del args, got
+        torch.cuda.empty_cache()
+    return _kernel_entry(
+        "attn_gated", "audio_to_sheet_music_tpu_torch/csrc/attn_block.cu",
+        "none: models.bs_roformer has no JAX counterpart", forms,
+        "launches_per_group", BF16_TENSOR_FLOPS,
+        "mean per launch over one group's 24 launches")
+
+
+def check_rope_qkv(gen: torch.Generator) -> dict:
+    """``rope_qkv`` (RoPE on q and k and the split of the packed
+    projection, one pass) against its plain version at the BS-RoFormer
+    cell's two axes; CUDA-event times (a launch takes ~0.4 ms)."""
+    from audio_to_sheet_music_tpu_torch.ops import fused_rope
+    from port_bench import roformer_work
+
+    print("rope_qkv at BS-RoFormer's serving group (4 chunks of 8 s), "
+          "D=512, 8 heads, bf16:")
+    print(f"  tolerance: {ROPE_TOL['reason']}")
+    forms = []
+    for name, b, l, n in ROFORMER_FORMS:
+        qkv = torch.randn((b, l, 3 * D), generator=gen).to("cuda",
+                                                            torch.bfloat16)
+        kernel = lambda: fused_rope.rope_qkv(qkv, HEADS)  # noqa: E731
+        plain = lambda: fused_rope.rope_qkv_plain(qkv, HEADS)  # noqa: E731
+        with torch.inference_mode():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            errs = [compare(f"{name} B={b} L={l} {part}", g, w, ROPE_TOL)
+                    for part, g, w in zip("qkv", got, want)]
+            if not torch.equal(got[2], want[2]):
+                raise SmokeFailure("rope_qkv: v is not copied as it is")
+            row = {"form": name, "B": b, "L": l, "launches_per_group": n,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs),
+                   "rms_err": max(e["rms_err"] for e in errs),
+                   "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5)}
+        # no library call computes it: the plain version's PyTorch ops are
+        # the path the kernel replaced
+        row["library_ms"] = row["plain_ms"]
+        row.update(bound(*roformer_work.rope_work(b, l, D), F32_FLOPS))
+        _print_times(row)
+        forms.append(row)
+        del qkv, got, want
+        torch.cuda.empty_cache()
+    return _kernel_entry(
+        "rope_qkv", "audio_to_sheet_music_tpu_torch/csrc/rope.cu",
+        "none: models.bs_roformer has no JAX counterpart", forms,
+        "launches_per_group", F32_FLOPS,
+        "mean per launch over one group's 24 launches")
 
 
 def eval_stft(gen: torch.Generator) -> dict:
@@ -3383,6 +3508,82 @@ def run_programs(card: str, path: dict) -> dict:
     return out
 
 
+def run_roformer(card: str) -> dict:
+    """Phase 11: BS-RoFormer at its published widths through the serving
+    path of ``bs_roformer.songs-vocals`` (``separate_all_pcm``, vocals,
+    8 s chunks at hop 2 s in groups of four), with the launch counters set
+    to 0 just before a warm call and read just after."""
+    from audio_to_sheet_music_tpu_torch.infer import chunked
+    from audio_to_sheet_music_tpu_torch.infer.session import Separator
+    from audio_to_sheet_music_tpu_torch.models import bs_roformer
+    from audio_to_sheet_music_tpu_torch.ops import kernel_gate
+
+    t_phase = time.perf_counter()
+    print(f"phase 11 on {card}")
+    cfg = bs_roformer.PUBLISHED
+    model = bs_roformer.init(cfg, seed=SEED, device="cuda")
+    sep = Separator(model, device="cuda", segment_seconds=ROFORMER_SEGMENT,
+                    overlap_seconds=ROFORMER_OVERLAP, deterministic=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    # the gate runs again for this model class: one BS-RoFormer layer
+    gate = kernel_gate.last_result()
+    if gate["launches"] != {"attn_gated": 2, "rope_qkv": 2}:
+        raise SmokeFailure(f"BS-RoFormer: the kernel gate did not run its "
+                           f"layer's launches: {gate}")
+    try:
+        sep.separate_all_pcm(np.zeros((2, 44100), np.float32), ["drums"])
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("BS-RoFormer: a stem it does not have was served")
+
+    song = _song(np.random.default_rng(SEED))
+    n = song.shape[-1]
+    grid = chunked.plan_chunks(n, sep.segment, sep.overlap, sep.bucket)
+    # the groups that run: the schedule may over-cover the song
+    schedule, start = [], 0
+    for g in sep._group_schedule(grid, ROFORMER_GROUP):
+        if start < n:
+            schedule.append(g)
+        start += g * grid.hop
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sep.separate_all_pcm(song, ["vocals"], group_chunks=ROFORMER_GROUP)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _zero_counters()
+    t0 = time.perf_counter()
+    pcm, scales = sep.separate_all_pcm(song, ["vocals"],
+                                       group_chunks=ROFORMER_GROUP)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_counters().items() if v}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = SONG_SECONDS / wall
+    print(f"  separate_all_pcm, vocals, groups {schedule}: gate rms "
+          f"{gate['rms']:.3e}, set-up {setup_s:.2f} s, warm-up {warm_s:.2f} "
+          f"s (captures included), run {wall:.3f} s, {rate:.2f} "
+          f"audio-sec/sec, peak device memory {peak_gib:.2f} GiB, launches "
+          f"{launches}")
+    want = {k: 2 * cfg.depth * len(schedule)
+            for k in ("attn_gated", "rope_qkv")}
+    if launches != want:
+        raise SmokeFailure(f"BS-RoFormer's path launched {launches}, want "
+                           f"{want} (one of each a transformer a group)")
+    if pcm.dtype != np.int16 or pcm.shape != (1, 2, n):
+        raise SmokeFailure(f"pcm {pcm.dtype} {pcm.shape}, want int16 "
+                           f"(1, 2, {n})")
+    if not np.all(np.isfinite(scales)) or np.abs(pcm).max() == 0:
+        raise SmokeFailure("BS-RoFormer's output is silent or its scale is "
+                           "not finite")
+    del sep, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "schedule": schedule, "gate": gate,
+            "setup_s": setup_s, "warmup_s": warm_s, "wall_s": wall,
+            "audio_sec_per_sec": rate, "peak_mem_gib": peak_gib,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main(argv: list) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -3408,7 +3609,7 @@ def main(argv: list) -> int:
         global BF16_TENSOR_FLOPS
         BF16_TENSOR_FLOPS = profiling.peak_tflops() * 1e12
         sources = ["layer_tail", "henc_freq", "dconv_rows", "attn_block",
-                   "stft", "group_norm"]
+                   "stft", "group_norm", "rope"]
         build_s = build.build_all(sources)
         print(f"kernels built in {build_s:.2f} s")
         compiled = check_build(sources)
@@ -3421,6 +3622,7 @@ def main(argv: list) -> int:
                   eval_dconv(gen), eval_attn_block(gen), eval_stft(gen)]
         for k, at_eval in zip(kernels, k_eval):
             k.update(at_eval)
+        k_roformer = [check_attn_gated(gen), check_rope_qkv(gen)]
         path, model, stems, pcm = run_path(profile)
         training = run_training(profile)
         evaluation = run_eval(profile)
@@ -3429,6 +3631,7 @@ def main(argv: list) -> int:
         parallel = run_parallel_gate(card, path, pcm)
         learning = run_learning_proof(card)
         graphs = run_programs(card, path)
+        roformer = run_roformer(card)
         for k in kernels:
             counts = (path["launches"] if k["name"] in path["launches"]
                       else training["launches"])
@@ -3440,6 +3643,9 @@ def main(argv: list) -> int:
                 k["name"]]
             k.update(serving["kernels"].get(k["name"], {}))
             k["learn_launches"] = learning["launches"].get(k["name"], 0)
+        for k in k_roformer:
+            k["launches"] = roformer["launches"][k["name"]]
+        kernels += k_roformer
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3451,7 +3657,8 @@ def main(argv: list) -> int:
          "kernels": kernels, "path": path, "training": training,
          "eval": evaluation, "serving": serving,
          "checkpoints_towers": slice9, "parallel_gate": parallel,
-         "learning_proof": learning, "programs": graphs},
+         "learning_proof": learning, "programs": graphs,
+         "bs_roformer": roformer},
         indent=1, default=str))
     summary = [{k: v for k, v in kern.items()
                 if k in ("name", "route", "source", "replaces", "launches",

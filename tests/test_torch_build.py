@@ -122,19 +122,21 @@ def test_launch_makes_the_input_card_current(fake_cuda):
 
 
 def test_every_kernel_launch_goes_through_the_guard():
-    """The five ctypes launch sites (``layer_tail``, ``attn_block``,
-    ``henc_freq_fused``, ``dconv_rows``, ``stft``) hand their launcher to
-    ``build.launch`` and call none directly: their CUDA branch needs CUDA
-    tensors, so this reads the source."""
+    """The seven ctypes launch sites (``layer_tail``, ``attn_block``,
+    ``attn_gated``, ``henc_freq_fused``, ``dconv_rows``, ``stft``,
+    ``rope_qkv``) hand their launcher to ``build.launch`` and call none
+    directly: their CUDA branch needs CUDA tensors, so this reads the
+    source."""
     import re
     from pathlib import Path
 
     ops = Path(build.__file__).parent
     guarded, direct = {}, []
-    for name in ("fused_attn", "fused_dconv", "fused_enc", "fused_stft"):
+    for name in ("fused_attn", "fused_dconv", "fused_enc", "fused_stft",
+                 "fused_rope"):
         src = (ops / f"{name}.py").read_text()
         guarded[name] = len(re.findall(r"build\.launch\(", src))
         direct += re.findall(r"\w+_launch\(", src)
-    assert guarded == {"fused_attn": 2, "fused_dconv": 1, "fused_enc": 1,
-                       "fused_stft": 1}
+    assert guarded == {"fused_attn": 3, "fused_dconv": 1, "fused_enc": 1,
+                       "fused_stft": 1, "fused_rope": 1}
     assert direct == []

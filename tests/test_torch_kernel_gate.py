@@ -3,7 +3,7 @@
 Every case of ``tests/test_kernel_gate.py`` with the veto replaced by the
 port's rule, raise: divergence raises ``KernelParityError`` naming the rms
 and the threshold, agreement passes, the gate runs once per (selection,
-device), and it skips on the CPU, at the ``none`` selection, at widths no
+device, model class), and it skips on the CPU, at the ``none`` selection, at widths no
 kernel takes (read on a card from the launch counters around the kernel
 pass) and under ``ATSM_SKIP_PARITY_GATE=1``; ``Separator``
 construction calls it on each distinct device.  Injected pairs give the JAX
@@ -112,7 +112,17 @@ def test_gate_runs_once_per_selection_and_device():
     with pytest.raises(kernel_gate.KernelParityError):
         kernel_gate.ensure_layer_parity(None, kernels="opt_in",
                                         forward=_diverging, args=ARGS)
-    assert set(kernel_gate._RESULTS) == {(DEFAULT, "cpu"), (OPT_IN, "cpu")}
+    assert set(kernel_gate._RESULTS) == {(DEFAULT, "cpu", "NoneType"),
+                                         (OPT_IN, "cpu", "NoneType")}
+
+
+def test_gate_runs_again_for_another_model_class():
+    """ATHT and BS-RoFormer launch different kernels: a gate passed on one
+    does not stand for the other on the same selection and device."""
+    kernel_gate.ensure_layer_parity(None, forward=_agreeing, args=ARGS)
+    with pytest.raises(kernel_gate.KernelParityError):
+        kernel_gate.ensure_layer_parity(torch.nn.Linear(1, 1),
+                                        forward=_diverging, args=ARGS)
 
 
 def test_skip_env_disables_gate(monkeypatch):
