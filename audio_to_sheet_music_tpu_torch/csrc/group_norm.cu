@@ -1,5 +1,7 @@
 // GroupNorm over contiguous rows in two launches: split-row statistics,
-// then normalise, affine and the activation that follows, in one pass.
+// then normalise, affine and the activation that follows, in one pass; or,
+// after the ATHT head's decoder convolutions, the statistics and then the
+// whole decoder join in one pass (gn1_coefs and gn1_join, below).
 //
 // Replaces no TPU kernel.  The JAX package leaves GroupNorm to XLA, which
 // fuses it on the TPU.  PyTorch's CUDA GroupNorm (F.group_norm) takes its
@@ -41,12 +43,53 @@
 //      input's dtype.  The channel is tracked by increments, so the loop
 //      divides only once a thread.
 //
+// The ATHT head's decoder join (gn1_coefs and gn1_join, after gn1_moments
+// in place of gn1_apply).  Replaces no TPU kernel: the JAX package's
+// _freq_layer_down4 (models/atht.py) is an XLA lowering.  After each of
+// the head's 8 transposed convolutions the decoders normalised and GELU'd
+// the whole output, resized one axis (two index_select gathers, two f32
+// copies, the lerp, a cast back), resized the encoder skip's first C
+// channels the same way, scaled it by 0.1 and added it, broadcast over the
+// stems: ~10 launches a layer with f32 temporaries over the model's
+// largest tensors, 25-35 GB a songs group.  The decoders compare their F
+// against the encoder's T lengths, so freq layers 1-3 grow F from 259 to
+// 1036 and decimate it straight back by 4: row i reads rows 4i+1 and 4i+2
+// at 1/2 each.
+//
+// What bounds it: bytes.  The rows the taps name read once (half of the
+// convolution's output on a /4 layer), the skip's named rows read once at
+// their source size, the output written once: ~2 GB a songs group.  At
+// freq layer 1's songs shape (16, 96, 1036, 259) -> 259 rows that is 0.19
+// ms; the arithmetic is two GELUs and three lerps an output.
+//
+// Design.  Three launches: gn1_moments as above; gn1_coefs folds each
+// plane's statistics (its row's triples merged as gn1_apply merges them)
+// and its channel's affine into (mean, rstd w[c], b[c]); gn1_join.  A
+// gn1_join block takes the planes that share one skip plane (a chunk's
+// stems) and rounds of 512 consecutive output positions (row x trailing
+// index), 4 a thread 128 apart, PyTorch's elementwise layout.  A round
+// reads its positions' tap records once (a row's threads share them: the
+// first elements of y's two tap rows and the skip's two, and the two
+// weights, ops/fused_norm.join_table), then takes the stems in turn, each
+// with its 16 loads in flight before their first use: the first stem
+// reads the skip's rows from memory, the others from L1, and later rounds
+// find an upsampled y's rows in L1.  The GELU is A&S 7.1.26's (below).
+// Everything is f32 from the bf16 loads to one rounding of the output; no
+// tensor of the convolution's size and no f32 temporary is written.
+//
+// It reaches 2.7x its bound there (PERF.md): the two GELUs' arithmetic
+// and the reads of half of each 4-row block, which PyTorch's own strided
+// copy of the same rows streams at 2 TB/s, hold it.  Its loads are of one
+// element: at W = 259 the tap rows start at odd elements, and staging
+// them in shared memory by 16-byte loads was slower (0.77 ms there).
+//
 // No atomics: every sum is taken in a fixed order, so the result is
 // bitwise the same from run to run, as the serving programs' captured
 // graphs and deterministic=True require.  Kernel names start with gn1_.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -246,18 +289,18 @@ struct Geo {
 // A lane loads RS triples before it merges them, so the loads overlap.
 constexpr int RS = 8;
 __device__ __forceinline__ void row_stats(const float* __restrict__ part,
-                                          long long r, const Geo& g,
+                                          long long r, int splits, float eps,
                                           float* out) {
   Stat s = {0.0f, 0.0f, 0.0f};
-  const float* row = part + r * g.splits * 3;
-  for (int j0 = threadIdx.x & 31; j0 < g.splits; j0 += 32 * RS) {
+  const float* row = part + r * splits * 3;
+  for (int j0 = threadIdx.x & 31; j0 < splits; j0 += 32 * RS) {
     Stat t[RS];
 #pragma unroll
     for (int i = 0; i < RS; ++i) {
       const int j = j0 + 32 * i;
-      t[i] = j < g.splits ? Stat{__ldg(row + 3 * j), __ldg(row + 3 * j + 1),
-                                 __ldg(row + 3 * j + 2)}
-                          : Stat{0.0f, 0.0f, 0.0f};
+      t[i] = j < splits ? Stat{__ldg(row + 3 * j), __ldg(row + 3 * j + 1),
+                               __ldg(row + 3 * j + 2)}
+                        : Stat{0.0f, 0.0f, 0.0f};
     }
 #pragma unroll
     for (int i = 0; i < RS; ++i) merge(s, t[i]);
@@ -265,7 +308,7 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ part,
   warp_merge(s);
   if ((threadIdx.x & 31) == 0) {
     out[0] = s.mean;
-    out[1] = 1.0f / sqrtf(s.m2 / s.n + g.eps);
+    out[1] = 1.0f / sqrtf(s.m2 / s.n + eps);
   }
 }
 
@@ -345,8 +388,9 @@ gn1_apply(const T* __restrict__ x, const float* __restrict__ part,
     }
   }
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  if (warp == 0) row_stats(part, ra, g, rs);
-  if (ACT == GLU && warp == (nw > 1 ? 1 : 0)) row_stats(part, rb, g, rs + 2);
+  if (warp == 0) row_stats(part, ra, g.splits, g.eps, rs);
+  if (ACT == GLU && warp == (nw > 1 ? 1 : 0))
+    row_stats(part, rb, g.splits, g.eps, rs + 2);
   __syncthreads();
   if (stats != nullptr && k == 0 && threadIdx.x == 0) {
     stats[2 * ra] = rs[0];
@@ -424,6 +468,130 @@ gn1_apply(const T* __restrict__ x, const float* __restrict__ part,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 3. The decoder join
+// ---------------------------------------------------------------------------
+
+// GELU with erf by Abramowitz & Stegun 7.1.26 (|error| <= 1.5e-7 in erf),
+// the form the JAX package's Pallas kernels take: ~20 instructions, where
+// erff's two ranges, if-converted, take ~60 a call and would bound the
+// join's arithmetic (two GELUs an output).  In f32 it errs from the exact
+// GELU by at most 4.7e-7 (1.6e-5 relative where |gelu| > 0.01), under
+// PyTorch's f32 GELU on the CPU (1.1e-6, 6.4e-5), 10^4 below a bf16 step.
+__device__ __forceinline__ float gelu_as(float v) {
+  const float x = fabsf(v) * 0.70710678118654752f;
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, x, 1.0f));
+  float p = fmaf(t, 1.061405429f, -1.453152027f);
+  p = fmaf(t, p, 1.421413741f);
+  p = fmaf(t, p, -0.284496736f);
+  p = fmaf(t, p, 0.254829592f);
+  const float e = fmaf(-p * t, __expf(-x * x), 1.0f);   // erf(|v| / sqrt 2)
+  return 0.5f * v * (1.0f + copysignf(e, v));
+}
+
+// The join's normalise, affine and GELU of one element.
+__device__ __forceinline__ float norm_gelu(float v, float mean,
+                                          const Coef& k) {
+  return gelu_as(fmaf(v - mean, k.sa, k.ba));
+}
+
+constexpr int JOIN_NT = 128;   // threads a block
+constexpr int JOIN_U = 4;      // positions a thread a round, JOIN_NT apart
+
+struct JoinGeo {
+  long long ystride;  // elements a plane of y: a x W
+  long long sstride;  // elements a plane of the skip: as x W
+  int len;            // output elements a plane: output rows x W
+  int W;              // elements a row (the axes after the resized one)
+  int C, skip_c, b0;  // channels of y; of the skip tensor; the skip's batch
+  int stems;          // B / b0: the planes that share a skip plane
+  int iters;          // rounds a block
+  int xr;             // y is resized (else its second tap is its first)
+  float scale;
+};
+
+// Each plane's folded norm: (mean, rstd w[c], b[c]) of plane p = b C + c,
+// from its batch row's triples.  A warp a plane.
+__global__ void __launch_bounds__(256)
+gn1_coefs(const float* __restrict__ part, const float* __restrict__ w,
+          const float* __restrict__ bias, float4* __restrict__ coefs,
+          long long planes, int C, int splits, float eps) {
+  __shared__ float rs[8][2];
+  const int warp = threadIdx.x >> 5;
+  const long long p = (long long)blockIdx.x * 8 + warp;
+  if (p >= planes) return;
+  const long long b = p / C;
+  const int c = (int)(p - b * C);
+  row_stats(part, b, splits, eps, rs[warp]);
+  if ((threadIdx.x & 31) == 0)
+    coefs[p] = make_float4(rs[warp][0], rs[warp][1] * __ldg(w + c),
+                           __ldg(bias + c), 0.0f);
+}
+
+// Block (x, y): iters rounds of JOIN_U x JOIN_NT consecutive output
+// positions (row x trailing index), in the planes that share skip plane y
+// = (j, c): planes (k b0 + j) C + c, k < stems (the stems of one chunk).
+// A round reads its positions' tap records once (a row's threads share
+// them), then takes the stems in turn, each with all of its loads in
+// flight before their first use; a stem after the first finds the skip's
+// rows in L1, and a round after the first an upsampled y's rows.
+template <typename T, bool NORM>
+__global__ void __launch_bounds__(JOIN_NT)
+gn1_join(const T* __restrict__ y, const float4* __restrict__ coefs,
+         const int4* __restrict__ tab, const float2* __restrict__ frac,
+         const T* __restrict__ skip, T* __restrict__ out, JoinGeo g) {
+  const int j = blockIdx.y / g.C, c = blockIdx.y - j * g.C;
+  const T* sp = skip + ((long long)j * g.skip_c + c) * g.sstride;
+  for (int it = 0; it < g.iters; ++it) {
+    const int base = (blockIdx.x * g.iters + it) * (JOIN_U * JOIN_NT) +
+                     (int)threadIdx.x;
+    if (base >= g.len) break;
+    // positions past the plane's end read the last one and store nothing
+    int4 t[JOIN_U];
+    float2 f[JOIN_U];
+#pragma unroll
+    for (int u = 0; u < JOIN_U; ++u) {
+      const int q = min(base + u * JOIN_NT, g.len - 1);
+      const int r = q / g.W, col = q - r * g.W;
+      t[u] = __ldg(tab + r);
+      t[u].x += col;
+      t[u].y += col;
+      t[u].z += col;
+      t[u].w += col;
+      f[u] = __ldg(frac + r);
+    }
+    for (int k = 0; k < g.stems; ++k) {
+      const long long p = ((long long)k * g.b0 + j) * g.C + c;
+      const T* yp = y + p * g.ystride;
+      T* op = out + p * g.len;
+      float va[JOIN_U], vb[JOIN_U], sa[JOIN_U], sb[JOIN_U];
+#pragma unroll
+      for (int u = 0; u < JOIN_U; ++u) {
+        va[u] = Vec<T>::get(yp + t[u].x);
+        vb[u] = Vec<T>::get(yp + t[u].y);
+        sa[u] = Vec<T>::get(sp + t[u].z);
+        sb[u] = Vec<T>::get(sp + t[u].w);
+      }
+      const float4 kf = NORM ? __ldg(coefs + p) : make_float4(0, 0, 0, 0);
+      const Coef kc = {kf.y, kf.z, 0.0f, 0.0f};
+#pragma unroll
+      for (int u = 0; u < JOIN_U; ++u) {
+        const int q = base + u * JOIN_NT;
+        if (q < g.len) {
+          float ha = va[u], hb = vb[u];
+          if (NORM) {
+            ha = norm_gelu(ha, kf.x, kc);
+            hb = g.xr ? norm_gelu(hb, kf.x, kc) : ha;
+          }
+          Vec<T>::put(op + q,
+                      fmaf(g.scale, sa[u] * (1.0f - f[u].y) + sb[u] * f[u].y,
+                           ha * (1.0f - f[u].x) + hb * f[u].x));
+        }
+      }
+    }
+  }
+}
+
 int threads_for(long long chunk) {
   long long t = (chunk / 16 + 31) / 32 * 32;
   return (int)(t < 32 ? 32 : t > MAX_NT ? MAX_NT : t);
@@ -459,6 +627,34 @@ cudaError_t run_act(int act, const void* x, const float* w, const float* b,
                       stream);
 }
 
+template <typename T>
+cudaError_t run_join(const void* y, const float* w, const float* b,
+                     float* part, float4* coefs, long long n, int splits,
+                     long long chunk1, float eps, const int4* tab,
+                     const float2* frac, const void* skip, void* out,
+                     long long planes, const JoinGeo& g, cudaStream_t stream) {
+  const T* yt = static_cast<const T*>(y);
+  const bool norm = w != nullptr;
+  if (norm) {
+    gn1_moments<T><<<(unsigned)(planes / g.C * splits), threads_for(chunk1),
+                     0, stream>>>(yt, part, n, splits, chunk1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    gn1_coefs<<<(unsigned)((planes + 7) / 8), 256, 0, stream>>>(
+        part, w, b, coefs, planes, g.C, splits, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long per = (long long)g.iters * JOIN_U * JOIN_NT;
+  const dim3 grid((unsigned)((g.len + per - 1) / per),
+                  (unsigned)(g.b0 * g.C));
+  const auto kernel = norm ? gn1_join<T, true> : gn1_join<T, false>;
+  kernel<<<grid, JOIN_NT, 0, stream>>>(yt, coefs, tab, frac,
+                                       static_cast<const T*>(skip),
+                                       static_cast<T*>(out), g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x -> out on `stream`, both contiguous and 16-byte aligned, dtype 0 f32,
@@ -492,5 +688,61 @@ extern "C" int gn1_launch(const void* x, int dtype, int act, const float* w,
                                  chunk1, segments, s)
                  : run_act<float>(act, x, w, b, out, part, stats, rows, g,
                                   chunk1, segments, s);
+  return (int)err;
+}
+
+// The decoder join on `stream`.  y (B, C, a, W) and skip (b0 dividing B,
+// skip_c >= C channels, as rows, W) contiguous, dtype 0 f32, 1 bf16; y
+// 16-byte aligned where it is normalised.  out (B, C, rows, W) gets
+// gelu(norm(y)) (y itself where w is null), resized along the rows, plus
+// scale x the skip's channels [0, C) of batch item b mod b0, resized the
+// same way.  tab (rows, 4) int32 holds each output row's tap rows x W (y's
+// two, the skip's two), frac (rows, 2) f32 the weights of the second taps
+// (y's, the skip's); xr says whether y is resized.  w, b: the (C,) affine
+// in f32, or null; then launch 1 (the statistics, part f32 scratch (B,
+// splits, 3), rows of n = C a W cut into splits slices of chunk1) and the
+// planes' folded norms (coefs, (B C) float4 scratch) run first.  A block
+// of the join takes iters rounds.  Returns the first CUDA error.
+extern "C" int gn1_join_launch(const void* y, int dtype, const float* w,
+                               const float* b, float* part, float* coefs,
+                               long long n, int splits, long long chunk1,
+                               const int* tab, const float* frac, int xr,
+                               const void* skip, void* out, long long B,
+                               int C, long long a, long long rows,
+                               long long W, int skip_c, int b0, long long as,
+                               int iters, float eps, float scale,
+                               void* stream) {
+  const long long planes = B * C;
+  if (B < 1 || C < 1 || a < 1 || rows < 1 || W < 1 || as < 1 || b0 < 1 ||
+      B % b0 || skip_c < C || (long long)b0 * C > 65535 || iters < 1 ||
+      rows * W > INT_MAX - (long long)iters * JOIN_U * JOIN_NT ||
+      a * W > INT_MAX || as * W > INT_MAX || tab == nullptr ||
+      frac == nullptr || (w == nullptr) != (b == nullptr) ||
+      (w != nullptr && (splits < 1 || coefs == nullptr || part == nullptr ||
+                        n != (long long)C * a * W)))
+    return (int)cudaErrorInvalidValue;
+  if (w != nullptr && (reinterpret_cast<uintptr_t>(y) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  JoinGeo g;
+  g.ystride = a * W;
+  g.sstride = as * W;
+  g.len = (int)(rows * W);
+  g.W = (int)W;
+  g.C = C;
+  g.skip_c = skip_c;
+  g.b0 = b0;
+  g.stems = (int)(B / b0);
+  g.iters = iters;
+  g.xr = xr;
+  g.scale = scale;
+  const int4* t4 = reinterpret_cast<const int4*>(tab);
+  const float2* f2 = reinterpret_cast<const float2*>(frac);
+  float4* c4 = reinterpret_cast<float4*>(coefs);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 1 ? run_join<bf16>(y, w, b, part, c4, n, splits, chunk1, eps,
+                                  t4, f2, skip, out, planes, g, s)
+                 : run_join<float>(y, w, b, part, c4, n, splits, chunk1, eps,
+                                   t4, f2, skip, out, planes, g, s);
   return (int)err;
 }

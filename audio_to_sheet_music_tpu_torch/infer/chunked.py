@@ -61,10 +61,10 @@ def fade_weights(segment: int, overlap: int, device=None) -> torch.Tensor:
     ``min(fade_in, fade_out)`` so long overlaps give a symmetric triangle.
 
     One tensor per ``(segment, overlap, device)``, kept as
-    ``nn.core._lerp_src`` keeps its taps: a host-to-device copy on every
-    call would make the host wait for the card, and cannot be captured in a
-    CUDA graph (``infer.programs``).  Made outside inference mode, so
-    training can use it too.  Callers must not write into it."""
+    ``ops.fused_norm.lerp_taps`` keeps its taps: a host-to-device copy on
+    every call would make the host wait for the card, and cannot be
+    captured in a CUDA graph (``infer.programs``).  Made outside inference
+    mode, so training can use it too.  Callers must not write into it."""
     return _fade_weights(segment, overlap, torch.device(device or "cpu"))
 
 

@@ -39,7 +39,7 @@ from ..convert import jax_params
 from ..nn import core as L
 from ..nn import prng
 from ..nn.attention import MHA
-from ..ops import dsp
+from ..ops import dsp, fused_norm
 from ..ops.select import Kernels, resolve
 from ..utils import profiling
 from . import clap_text, htdemucs
@@ -262,15 +262,29 @@ def text_cross_attention_apply(p: TextCrossAttention, x: torch.Tensor,
     return (x_seq.transpose(1, 2).reshape(b, c, f, t), xt_seq.transpose(1, 2))
 
 
-def _skip_add(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """``x + skip * SKIP_SCALE`` where ``skip``'s batch may divide ``x``'s
-    (the multi-stem head keeps the stem-independent encoder state untiled)."""
-    b, b0 = x.shape[0], skip.shape[0]
-    contrib = skip.to(x.dtype) * SKIP_SCALE
-    if b == b0:
-        return x + contrib
-    xr = x.reshape(b // b0, b0, *x.shape[1:])
-    return (xr + contrib[None]).reshape(b, *x.shape[1:])
+def _join(layer: DecoderLayer, x: torch.Tensor, size: int,
+          skip: torch.Tensor) -> torch.Tensor:
+    """What follows a decoder layer's transposed convolution: its
+    GroupNorm(1) and GELU (the last layer has none), axis 2 resized to
+    ``size``, and the skip's first C channels, resized likewise, added at
+    ``SKIP_SCALE``.
+
+    Where autograd records (the head's training step) it is the chain of
+    ops it always was, since the fused join has no backward: the norm
+    (through ``GroupNormFunction`` on the card), then
+    ``ops.fused_norm.decoder_join_plain``'s resizes and skip add; otherwise
+    ``ops.fused_norm.decoder_join``: on the card the norm's statistics and
+    one launch that reads each tap of x and of the skip once and writes the
+    output once, on the CPU the same chain op for op."""
+    norm = getattr(layer, "norm", None)
+    affine = (None, None) if norm is None else (norm.weight, norm.bias)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, skip, *affine)):
+        if norm is not None:
+            x = L.group_norm(norm, x, 1, act="gelu")
+        return fused_norm.decoder_join_plain(x, None, None, skip, size,
+                                             SKIP_SCALE)
+    return fused_norm.decoder_join(x, *affine, skip, size, SKIP_SCALE)
 
 
 def freq_decoder_apply(p: Decoder, x: torch.Tensor, skips: List[torch.Tensor],
@@ -278,34 +292,26 @@ def freq_decoder_apply(p: Decoder, x: torch.Tensor, skips: List[torch.Tensor],
     """4 x [ConvT2d k=(8,1) s=(4,1) p=(2,0) -> GroupNorm(1) -> GELU] with the
     frequency axis resized to ``target_lengths[i]`` and 0.1-scaled skips.
 
-    Where F already equals the target, the resize is an exact /4 decimation;
-    the JAX package fuses that case into ``_freq_layer_down4`` (an XLA
-    lowering choice), here it is the plain ops with the same algebra."""
-    for i, layer in enumerate(p.layers):
+    Where F already equals the target, the resize is an exact /4 decimation
+    (taps 4i+1 and 4i+2, each weighing 1/2); the JAX package fuses that
+    case into ``_freq_layer_down4`` (an XLA lowering choice).  On the card
+    the serving paths run each layer's join as one launch (``_join``), which
+    reads only the rows those taps name; training keeps the plain chain."""
+    for layer, size, skip in zip(p.layers, target_lengths, skips,
+                                 strict=True):
         x = L.conv_transpose2d(layer.conv, x, stride=(4, 1), padding=(2, 0))
-        if hasattr(layer, "norm"):
-            x = L.group_norm(layer.norm, x, 1, act="gelu")
-        if i < len(target_lengths) and x.shape[2] != target_lengths[i]:
-            x = L.interpolate_bilinear(x, (target_lengths[i], x.shape[3]))
-        if i < len(skips):
-            skip = skips[i][:, : x.shape[1]]
-            skip = L.interpolate_bilinear(skip, x.shape[2:])
-            x = _skip_add(x, skip)
+        x = _join(layer, x, size, skip)
     return x
 
 
 def time_decoder_apply(p: Decoder, x: torch.Tensor, skips: List[torch.Tensor],
                        target_lengths: List[int]) -> torch.Tensor:
-    for i, layer in enumerate(p.layers):
+    """4 x [ConvT1d k=8 s=4 p=2 -> GroupNorm(1) -> GELU] with the sequence
+    resized to ``target_lengths[i]`` and 0.1-scaled skips (``_join``)."""
+    for layer, size, skip in zip(p.layers, target_lengths, skips,
+                                 strict=True):
         x = L.conv_transpose1d(layer.conv, x, stride=4, padding=2)
-        if hasattr(layer, "norm"):
-            x = L.group_norm(layer.norm, x, 1, act="gelu")
-        if i < len(target_lengths) and x.shape[2] != target_lengths[i]:
-            x = L.interpolate_linear(x, target_lengths[i])
-        if i < len(skips):
-            skip = skips[i][:, : x.shape[1]]
-            skip = L.interpolate_linear(skip, x.shape[2])
-            x = _skip_add(x, skip)
+        x = _join(layer, x, size, skip)
     return x
 
 

@@ -24,7 +24,6 @@ import functools
 import math
 from typing import Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -236,8 +235,8 @@ def rope_rotation(length: int, dim: int, device: torch.device
     """``exp(i·p·θ^(-2j/dim))`` for positions ``p < length`` and pairs ``j <
     dim / 2``, θ ``ROPE_THETA``: complex64 ``(length, 1, dim // 2)``, the
     angles in f32 as ``rotary_embedding_torch`` computes them.  Kept per
-    geometry and device (made outside inference mode) as ``_lerp_src``
-    keeps its taps."""
+    geometry and device (made outside inference mode) as
+    ``ops.fused_norm.lerp_taps`` keeps its taps."""
     with torch.inference_mode(False):
         freqs = 1.0 / (ROPE_THETA ** (torch.arange(0, dim, 2, device=device)
                                       .float() / dim))
@@ -280,47 +279,23 @@ def embedding(m: Embedding, idx: torch.Tensor) -> torch.Tensor:
     return m.weight[idx]
 
 
-@functools.lru_cache(maxsize=64)
-def _lerp_src(in_size: int, size: int, device: torch.device):
-    """Source taps of torch's ``align_corners=False`` linear resize, with the
-    positions computed in float64 as the JAX package does (``F.interpolate``
-    computes them in float32, which moves a 11028 -> 11025 resize by up to
-    ~1e-3 of a sample near the end): ``(i0, i1, frac)`` on ``device``.
-    Kept per geometry and device: copying host arrays to the card on every
-    call would wait for the card each time (a pageable host-to-device copy
-    synchronises), which would serialise the replicas of a mesh sweep.
-    Made outside inference mode, so a training step can use the taps that
-    a sweep made."""
-    src = (np.arange(size) + 0.5) * (in_size / size) - 0.5
-    i0f = np.floor(src)
-    frac = (src - i0f).astype(np.float32)
-    i0 = np.clip(i0f.astype(np.int64), 0, in_size - 1)
-    i1 = np.clip(i0f.astype(np.int64) + 1, 0, in_size - 1)
-    with torch.inference_mode(False):
-        return tuple(torch.from_numpy(a).to(device) for a in (i0, i1, frac))
-
-
-def _resize_axis(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
-    """Linear resize of one axis: two gathered taps and a lerp in f32."""
+def resize_axis(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """Linear resize of one axis: two gathered taps and a lerp in f32
+    (``ops.fused_norm.lerp`` over ``lerp_taps``)."""
     in_size = x.shape[dim]
     if in_size == size:
         return x
-    i0, i1, frac = _lerp_src(in_size, size, x.device)
-    shape = [1] * x.ndim
-    shape[dim] = size
-    f = frac.reshape(shape)
-    x0 = x.index_select(dim, i0).float()
-    x1 = x.index_select(dim, i1).float()
-    return (x0 * (1.0 - f) + x1 * f).to(x.dtype)
+    return fused_norm.lerp(x, fused_norm.lerp_taps(in_size, size, x.device),
+                           dim)
 
 
 def interpolate_linear(x: torch.Tensor, size: int) -> torch.Tensor:
     """(B, C, T) -> (B, C, size); 'linear', align_corners=False."""
-    return _resize_axis(x, size, x.ndim - 1)
+    return resize_axis(x, size, x.ndim - 1)
 
 
 def interpolate_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, *size); 'bilinear', align_corners=False,
     one axis after the other (the same result: bilinear is separable)."""
-    x = _resize_axis(x, size[0], x.ndim - 2)
-    return _resize_axis(x, size[1], x.ndim - 1)
+    x = resize_axis(x, size[0], x.ndim - 2)
+    return resize_axis(x, size[1], x.ndim - 1)

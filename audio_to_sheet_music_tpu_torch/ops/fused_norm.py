@@ -27,6 +27,30 @@ rows of up to 26 M elements, so a handful of blocks streamed them
 groups dividing C (GLU: 1 or an even number), or ``"tokens"`` for a
 ``(B, L, C)`` stream with one group, normalised in place (no transposes:
 the statistics over (L, C) do not depend on the layout); no GLU there.
+
+The ATHT head's decoder join, the same statistics with what follows them
+fused in (``csrc/group_norm.cu``'s third launch, ``gn1_join``):
+
+- ``decoder_join``: the wrapper.  After a decoder layer's transposed
+  convolution, GroupNorm(1) + GELU (where the layer has a norm), the
+  linear resize of axis 2 to ``size``, the encoder skip's first C channels
+  resized likewise, and ``out = x + scale * skip`` (the skip's batch may
+  divide x's: batch item b takes skip item ``b mod b0``).  A CUDA tensor
+  launches ``gn1_moments`` and ``gn1_coefs`` (where there is a norm) and
+  ``gn1_join``, or raises; a CPU tensor takes ``decoder_join_plain``.  No
+  backward: training keeps the plain chain (``models.atht``).
+  ``decoder_join.launches`` counts the calls that launched.  The kernel's
+  GELU takes erf by Abramowitz & Stegun 7.1.26 (see ``csrc/group_norm.cu``:
+  within 4.7e-7 of the exact GELU in f32, closer than PyTorch's f32 GELU).
+- ``join_table``: the kernel's tap records, cached per geometry.
+- ``decoder_join_plain``: the chain the decoders ran before, op for op
+  (``F.group_norm`` on f32 rounded to x's dtype, ``F.gelu``, ``lerp``,
+  the skip's ``lerp``, ``skip * scale``, the add), so the CPU gives the
+  bytes it gave.  The kernel computes the same algebra in f32 and rounds
+  once.
+- ``lerp_taps`` / ``lerp``: a linear resize's taps (f64 positions, cached
+  per geometry and device) and the two-tap lerp; ``nn.core``'s resizes
+  use them too.
 """
 
 from __future__ import annotations
@@ -35,6 +59,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,7 +79,13 @@ ALIGN = 8
 MAX_INNER = 2 ** 29
 # the H100's SMs: the partition the plain version repeats by default
 H100_SMS = 132
-
+# the decoder join (csrc/group_norm.cu): a block's threads, the positions
+# a thread takes a round, the most rounds a block takes; rounds are added
+# while the grid keeps JOIN_WAVES blocks an SM
+JOIN_NT = 128
+JOIN_U = 4
+JOIN_MAX_ITERS = 16
+JOIN_WAVES = 16
 
 def partition(segments: int, length: int, sms: int) -> tuple:
     """``(blocks, chunk)``: each of ``segments`` runs of ``length``
@@ -180,6 +211,10 @@ def _lib() -> ctypes.CDLL:
         lib.gn1_launch.argtypes = ([p, i, i, p, p, p, p, p, ll, ll, i, i, i,
                                     i, ll, ll, ll, i, ll, ctypes.c_float, p])
         lib.gn1_launch.restype = i
+        lib.gn1_join_launch.argtypes = [p, i, p, p, p, p, ll, i, ll, p, p, i,
+                                        p, p, ll, i, ll, ll, ll, i, i, ll, i,
+                                        ctypes.c_float, ctypes.c_float, p]
+        lib.gn1_join_launch.restype = i
         lib._bound = True
     return lib
 
@@ -294,3 +329,179 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 group_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The decoder join
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def lerp_taps(in_size: int, size: int, device: torch.device) -> tuple:
+    """Source taps of torch's ``align_corners=False`` linear resize, with the
+    positions computed in float64 as the JAX package does (``F.interpolate``
+    computes them in float32, which moves a 11028 -> 11025 resize by up to
+    ~1e-3 of a sample near the end): ``(i0, i1, frac)`` on ``device``,
+    int64, int64, f32.  An exact /4 decimation gives (4i+1, 4i+2, 0.5).
+    Kept per geometry and device: copying host arrays to the card on every
+    call would wait for the card each time (a pageable host-to-device copy
+    synchronises), which would serialise the replicas of a mesh sweep and
+    cannot be captured in a CUDA graph.  Made outside inference mode, so a
+    training step can use the taps that a sweep made."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in _taps(in_size, size))
+
+
+def _taps(in_size: int, size: int) -> tuple:
+    """``lerp_taps`` on the host, as numpy arrays; the identity where the
+    sizes agree."""
+    if in_size == size:
+        i = np.arange(size)
+        return i, i, np.zeros(size, np.float32)
+    src = (np.arange(size) + 0.5) * (in_size / size) - 0.5
+    i0f = np.floor(src)
+    frac = (src - i0f).astype(np.float32)
+    i0 = np.clip(i0f.astype(np.int64), 0, in_size - 1)
+    i1 = np.clip(i0f.astype(np.int64) + 1, 0, in_size - 1)
+    return i0, i1, frac
+
+
+@functools.lru_cache(maxsize=64)
+def join_table(rows_y: int, rows_skip: int, size: int, width: int,
+               device: torch.device) -> tuple:
+    """The join kernels' tap records for ``size`` output rows of ``width``
+    elements, from ``rows_y`` rows of y and ``rows_skip`` of the skip
+    (``lerp_taps``' taps, or the row itself where the sizes agree):
+    ``(tab, frac)``, tab (size, 4) int32 the tap rows' first elements (y's
+    two, the skip's two), frac (size, 2) f32 the second taps' weights.
+    Kept per geometry and device, as ``lerp_taps`` keeps its taps."""
+    y0, y1, fy = _taps(rows_y, size)
+    s0, s1, fs = _taps(rows_skip, size)
+    tab = np.stack([y0, y1, s0, s1], 1).astype(np.int64) * width
+    with torch.inference_mode(False):
+        return (torch.from_numpy(tab.astype(np.int32)).to(device),
+                torch.from_numpy(np.stack([fy, fs], 1)).to(device))
+
+
+def lerp(x: torch.Tensor, taps: tuple, dim: int) -> torch.Tensor:
+    """``x`` resized along ``dim`` by ``taps`` (``lerp_taps``): the two
+    gathered taps and their lerp in f32, rounded once to x's dtype."""
+    i0, i1, frac = taps
+    shape = [1] * x.ndim
+    shape[dim] = frac.shape[0]
+    f = frac.reshape(shape)
+    x0 = x.index_select(dim, i0).float()
+    x1 = x.index_select(dim, i1).float()
+    return (x0 * (1.0 - f) + x1 * f).to(x.dtype)
+
+
+def check_join(y: torch.Tensor, weight, bias, skip: torch.Tensor,
+               size: int) -> None:
+    """Raises on what the join does not take: y ``(B, C, A, *rest)``, skip
+    ``(b0, Cs, As, *rest)`` with ``b0 | B``, ``Cs >= C`` and the same
+    ``rest``; a ``(C,)`` affine or none."""
+    if y.ndim < 3 or skip.ndim != y.ndim or 0 in y.shape or 0 in skip.shape:
+        raise ValueError(f"decoder_join: y {tuple(y.shape)}, skip "
+                         f"{tuple(skip.shape)}: (B, C, A, *rest) each")
+    b, c = y.shape[:2]
+    b0, cs = skip.shape[:2]
+    if b % b0 or cs < c or skip.shape[3:] != y.shape[3:] or size < 1:
+        raise ValueError(f"decoder_join: y {tuple(y.shape)}, skip "
+                         f"{tuple(skip.shape)}, size {size}: the skip's "
+                         "batch must divide y's, its channels cover y's "
+                         "and its axes after the resized one equal y's")
+    if (weight is None) != (bias is None) or (
+            weight is not None and (weight.shape != (c,)
+                                    or bias.shape != (c,))):
+        raise ValueError(f"decoder_join: affine of {c} channels, got "
+                         f"{None if weight is None else tuple(weight.shape)}"
+                         f" / {None if bias is None else tuple(bias.shape)}")
+
+
+def decoder_join_plain(y: torch.Tensor, weight, bias, skip: torch.Tensor,
+                       size: int, scale: float, eps: float = EPS
+                       ) -> torch.Tensor:
+    """The join as the decoders composed it before the kernel: GroupNorm(1)
+    on f32 rounded to y's dtype, GELU, the resize, the skip's resize, the
+    scaled skip added (each op rounding to y's dtype)."""
+    check_join(y, weight, bias, skip, size)
+    h = y
+    if weight is not None:
+        h = F.gelu(F.group_norm(y.float(), 1, weight.float(), bias.float(),
+                                eps).to(y.dtype))
+    if h.shape[2] != size:
+        h = lerp(h, lerp_taps(h.shape[2], size, h.device), 2)
+    s = skip[:, : y.shape[1]]
+    if s.shape[2] != size:
+        s = lerp(s, lerp_taps(s.shape[2], size, s.device), 2)
+    contrib = s.to(h.dtype) * scale
+    b, b0 = h.shape[0], s.shape[0]
+    if b == b0:
+        return h + contrib
+    return (h.reshape(b // b0, b0, *h.shape[1:]) + contrib[None]).reshape(
+        h.shape)
+
+
+def join_iters(groups: int, length: int, sms: int) -> int:
+    """Rounds of ``JOIN_U`` x ``JOIN_NT`` positions a block of the join
+    takes over its ``groups`` skip planes of ``length`` output positions:
+    as many as keep ``JOIN_WAVES`` blocks an SM, at most
+    ``JOIN_MAX_ITERS``."""
+    blocks = groups * -(-length // (JOIN_U * JOIN_NT))
+    return max(1, min(JOIN_MAX_ITERS, blocks // (JOIN_WAVES * sms)))
+
+
+def decoder_join(y: torch.Tensor, weight, bias, skip: torch.Tensor,
+                 size: int, scale: float, eps: float = EPS) -> torch.Tensor:
+    """The decoder join (see the module notes): ``(B, C, size, *rest)`` in
+    y's dtype.  ``weight`` / ``bias`` None: no norm (the last layer).
+
+    CPU tensors take ``decoder_join_plain``.  On a card y and skip must be
+    bf16 or f32 alike, on y's card, with no gradient to record, else this
+    raises."""
+    if y.device.type == "cpu":
+        return decoder_join_plain(y, weight, bias, skip, size, scale, eps)
+    if y.device.type != "cuda":
+        raise ValueError(f"decoder_join: no kernel for device {y.device}")
+    build.check_no_grad("decoder_join", y, weight, bias, skip)
+    if y.dtype not in (torch.bfloat16, torch.float32) or skip.dtype != y.dtype:
+        raise TypeError(f"decoder_join: y {y.dtype} and skip {skip.dtype} "
+                        "must be bfloat16 or float32 alike")
+    if skip.device != y.device:
+        raise ValueError(f"decoder_join: skip on {skip.device}, y on "
+                         f"{y.device}")
+    check_join(y, weight, bias, skip, size)
+    dev = y.device
+    y = y.contiguous()
+    if y.data_ptr() % 16:
+        y = y.clone()
+    skip = skip.contiguous()
+    b, c, a = y.shape[:3]
+    rest = math.prod(y.shape[3:])
+    out = torch.empty((b, c, size, *y.shape[3:]), dtype=y.dtype, device=dev)
+    sms = _sms(dev.index if dev.index is not None
+               else torch.cuda.current_device())
+    tab, frac = join_table(a, skip.shape[2], size, rest, dev)
+    w = bb = part = coefs = None
+    n = splits = chunk1 = 0
+    if weight is not None:
+        w = build.f32(weight, dev, "decoder_join")
+        bb = build.f32(bias, dev, "decoder_join")
+        n = c * a * rest
+        splits, chunk1 = partition(b, n, sms)
+        part = torch.empty((b, splits, 3), dtype=torch.float32, device=dev)
+        coefs = torch.empty((b * c, 4), dtype=torch.float32, device=dev)
+    build.launch(
+        "decoder_join", dev, _lib().gn1_join_launch, y.data_ptr(),
+        1 if y.dtype == torch.bfloat16 else 0, *(
+            None if t is None else t.data_ptr() for t in (w, bb, part, coefs)),
+        n, splits, chunk1, tab.data_ptr(), frac.data_ptr(),
+        int(a != size), skip.data_ptr(), out.data_ptr(), b, c, a, size,
+        rest, skip.shape[1], skip.shape[0], skip.shape[2],
+        join_iters(skip.shape[0] * c, size * rest, sms), eps, scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    decoder_join.launches += 1
+    return out
+
+
+decoder_join.launches = 0

@@ -88,6 +88,7 @@ def _wrappers() -> Dict[str, object]:
             "dconv_rows": fused_dconv.dconv_rows,
             "attn_block": fused_attn.attn_block, "stft": fused_stft.stft,
             "group_norm": fused_norm.group_norm,
+            "dec_join": fused_norm.decoder_join,
             "attn_gated": fused_attn.attn_gated,
             "rope_qkv": fused_rope.rope_qkv}
 

@@ -33,7 +33,12 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    encoder layers' and decoders' 128 x 384, 512 x 192, 2048 x 96 and
    8192 x 48 rows by 336 frames, and the STFT at (32, 351232).  Then the
    GroupNorm pair (``ops/fused_norm``) at the main path's four norm shapes
-   in bf16 and f32, timed by the profiler's device time.  Then
+   in bf16 and f32, timed by the profiler's device time, and the ATHT
+   head's decoder join (``fused_norm.decoder_join``) at each of a songs
+   group's 8 layers and a stream block's freq layer 1 (skip batch = y's)
+   against its plain version on f32 operands; at freq layers 0 and 1 the
+   call (statistics and join), the ``gn1_join`` launch alone, the plain
+   chain and the chain the card ran before, by device time.  Then
    BS-RoFormer's two launches at its serving group's axes (four 8 s
    chunks: 248 sequences of 801 frames, 3,204 of 62 bands, width 512):
    ``attn_gated`` (the gated flash launch and the out-projection GEMM)
@@ -54,7 +59,8 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    ``separate_all_pcm``: once to warm up (which captures its group
    programs, ``infer.programs``), then once with the kernels' launch
    counters set to 0 just before and read just after (the replays count
-   them), with the peak device memory of both calls.  Then one 6 s chunk
+   them; 8 ``dec_join`` launches a group, one a ``henc_freq_fused``), with
+   the peak device memory of both calls.  Then one 6 s chunk
    goes through ``forward_with_text_emb`` with the kernels and with the
    per-op path; their rms difference must be below 1e-3.
 4. Training: the same full-width model (seeded init + trained head) trains
@@ -342,6 +348,39 @@ GN_FORMS = [((16, 96, 1036, 259), "gelu", "channels"),
             ((4, 2072, 512), "none", "tokens"),
             ((2048, 6, 259), "gelu", "channels")]
 
+
+
+def join_layers(b: int, b0: int) -> list:
+    """The ATHT head's 8 decoder joins of ``b`` rows over skips at batch
+    ``b0``: (layer, y shape, skip shape, size, norm?).  Freq layer 0
+    upsamples F from 32 rows; 1-3 decimate it by exactly 4 (taps 4i+1 and
+    4i+2); 3 has no norm.  The time layers resize the contiguous axis;
+    time layer 3 has no norm and leaves y's length as it is."""
+    return [
+        ("freq0", (b, 192, 32, 259), (b0, 384, 8, 259), 259, True),
+        ("freq1", (b, 96, 1036, 259), (b0, 192, 32, 259), 259, True),
+        ("freq2", (b, 48, 1036, 259), (b0, 96, 128, 259), 259, True),
+        ("freq3", (b, 4, 1036, 259), (b0, 48, 512, 259), 259, False),
+        ("time0", (b, 192, 4136), (b0, 384, 1034), 4135, True),
+        ("time1", (b, 96, 16540), (b0, 192, 4135), 16538, True),
+        ("time2", (b, 48, 66152), (b0, 96, 16538), 66150, True),
+        ("time3", (b, 4, 264600), (b0, 48, 66150), 264600, False),
+    ]
+
+
+# the decoder join against its plain version: every layer of a songs group
+# (16 head rows over skips at the encoder's batch of 4), and a stream
+# block's freq layer 1 (8 chunks of one stem: the skip's batch is y's);
+# the songs group's two largest, freq layers 0 and 1, are timed
+JOIN_FORMS = ([(f"songs {c[0]}",) + c[1:] for c in join_layers(16, 4)]
+              + [(f"stream {c[0]}",) + c[1:] for c in join_layers(8, 8)
+                 if c[0] == "freq1"])
+JOIN_TIMED = ("songs freq0", "songs freq1")
+JOIN_TOL = {"max_rel": 2.0 ** -7, "rms_rel": 2.0 ** -9, "reason": (
+    "1 output step of max|ref|, 1/2 of rms(ref), against the plain version "
+    "on f32 copies of the operands: the kernel rounds that f32 algebra "
+    "once")}
+
 # BS-RoFormer (models.bs_roformer, published widths) on the serving path of
 # bs_roformer.songs-vocals: 8 s chunks at hop 2 s in groups of four; each
 # axis of a group as (form, B, L): 4 x 62 band sequences of 801 frames, and
@@ -566,12 +605,16 @@ def device_ms_by_kernel(calls: list, reps: int = 3, tries: int = 3) -> list:
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a session can miss its first kernel's record: give it one to
+            # miss that is not counted
+            torch.cuda._sleep(1000)
             for fn in calls:
                 for _ in range(reps):
                     fn()
             torch.cuda.synchronize()
         kern = sorted((e for e in prof.events()
-                       if e.device_type == DeviceType.CUDA),
+                       if e.device_type == DeviceType.CUDA
+                       and "spin_kernel" not in e.name),
                       key=lambda e: e.time_range.start)
         if not kern or len(kern) % (len(calls) * reps):
             continue
@@ -839,7 +882,7 @@ def eval_henc(gen: torch.Generator) -> dict:
 
 def _weighted(forms: list, key: str, weight: str) -> float:
     n = sum(f[weight] for f in forms)
-    return sum(f[key] * f[weight] for f in forms) / n
+    return sum(f[key] * f[weight] for f in forms if f[weight]) / n
 
 
 def _kernel_entry(name: str, source: str, replaces: str, forms: list,
@@ -1141,6 +1184,105 @@ def check_group_norm(gen: torch.Generator) -> dict:
         "launches_per_group", F32_FLOPS, "one launch a form (bf16)")
 
 
+def _join_row(gen: torch.Generator, label: str, y_shape: tuple,
+              skip_shape: tuple, size: int, norm: bool, timed: bool) -> dict:
+    """The join at one shape against its plain version on f32 copies of
+    the operands; where ``timed``, the device times and bounds of the
+    call (``gn1_moments``, ``gn1_coefs``, ``gn1_join``) and of ``gn1_join``
+    alone, of the plain version and of the chain the card ran before."""
+    from audio_to_sheet_music_tpu_torch.ops import fused_norm
+
+    c = y_shape[1]
+    y = (0.7 + 2.0 * torch.randn(y_shape, generator=gen)).to(
+        "cuda", torch.bfloat16)
+    skip = torch.randn(skip_shape, generator=gen).to("cuda", torch.bfloat16)
+    w = (1.0 + 0.2 * torch.randn(c, generator=gen)).cuda()
+    b = (0.3 * torch.randn(c, generator=gen)).cuda()
+    if not norm:
+        w = b = None
+    kernel = lambda: fused_norm.decoder_join(  # noqa: E731
+        y, w, b, skip, size, 0.1)
+    plain = lambda: fused_norm.decoder_join_plain(  # noqa: E731
+        y, w, b, skip, size, 0.1)
+
+    # the chain the card ran before: the GroupNorm pair with its GELU, then
+    # PyTorch's gathers, f32 lerps, casts, the skip's scaling and the add
+    def library():
+        h = y if w is None else fused_norm.group_norm(y, w, b, 1, act="gelu")
+        return fused_norm.decoder_join_plain(h, None, None, skip, size, 0.1)
+
+    with torch.inference_mode():
+        got = kernel()
+        torch.cuda.synchronize()
+        err = compare(f"{label} {tuple(y_shape)} -> {size} rows, skip "
+                      f"{tuple(skip_shape)}{'' if norm else ', no norm'}",
+                      got, fused_norm.decoder_join_plain(
+                          y.float(), w, b, skip.float(), size, 0.1), JOIN_TOL)
+        del got
+        row = {"form": label, "y": list(y_shape), "skip": list(skip_shape),
+               "size": size, "norm": norm, **err,
+               "launches_per_group": int(timed)}
+        if not timed:
+            return row
+        by_kernel = device_ms_by_kernel([kernel], 5)[0]
+        by_library = device_ms_by_kernel([library], 5)[0]
+        join = [k for k in by_kernel if "gn1_join" in k]
+        if len(join) != 1:
+            raise SmokeFailure(f"decoder_join launched {sorted(by_kernel)}")
+        row.update({"ms": sum(by_kernel.values()),
+                    "join_ms": by_kernel[join[0]], "launch_ms": by_kernel,
+                    "plain_ms": cuda_ms(plain, 3),
+                    "library_ms": sum(by_library.values()),
+                    "library_launches": len(by_library)})
+
+    # bytes of gn1_join: the rows the taps name read once, the skip's rows
+    # its taps name (its first C channels) read once, the output written
+    # once; of the call, besides, the statistics' read of all of y
+    def named(n):  # the source rows the taps name, of n
+        taps = fused_norm.lerp_taps(n, size, torch.device("cpu"))
+        return len(torch.unique(torch.cat(taps[:2])))
+
+    rows, srows = named(y_shape[2]), named(skip_shape[2])
+    plane = math.prod(y_shape[3:])
+    join_bytes = 2 * plane * (y_shape[0] * c * (rows + size)
+                              + skip_shape[0] * c * srows)
+    row.update(bound(0.0, join_bytes + 2 * y.numel(), F32_FLOPS))
+    row["join_bound_ms"] = join_bytes / MEMORY_BYTES_PER_S * 1e3
+    _print_times(row)
+    print(f"    gn1_join alone {row['join_ms']:.4f} ms = "
+          f"{row['join_bound_ms'] / row['join_ms']:.1%} of its bound "
+          f"{row['join_bound_ms']:.4f} ({rows} of {y_shape[2]} rows of y "
+          f"read); the call = {row['bound_ms'] / row['ms']:.1%} of its "
+          f"bound (with the statistics' read of y); the chain before: "
+          f"{row['library_launches']} kernels")
+    return row
+
+
+def check_dec_join(gen: torch.Generator) -> dict:
+    """The decoder join at every layer of a songs group and a stream
+    block's freq layer 1, bf16, against its plain version in f32; at the
+    songs group's freq layers 0 and 1 the device times of the call (the
+    entry's ``ms``: statistics and join), of ``gn1_join`` alone
+    (``join_ms``), of the plain version (the old chain with
+    ``F.group_norm``) and of the chain the card ran before."""
+    print("dec_join at a songs group's 8 layers and a stream block's freq "
+          "layer 1:")
+    print(f"  tolerance: {JOIN_TOL['reason']}")
+    forms = []
+    for label, y_shape, skip_shape, size, norm in JOIN_FORMS:
+        forms.append(_join_row(gen, label, y_shape, skip_shape, size, norm,
+                               label in JOIN_TIMED))
+        torch.cuda.empty_cache()
+    entry = _kernel_entry(
+        "dec_join", "audio_to_sheet_music_tpu_torch/csrc/group_norm.cu",
+        "none: the JAX package's _freq_layer_down4 is an XLA lowering",
+        forms, "launches_per_group", F32_FLOPS,
+        "mean per call (statistics and join) at freq layers 0 and 1 (bf16)")
+    for key in ("join_ms", "join_bound_ms"):
+        entry[key] = _weighted(forms, key, "launches_per_group")
+    return entry
+
+
 def _gated_library(q, k, v, gate, x, wo):
     """BS-RoFormer's gated attention block as PyTorch library calls in bf16
     (``scaled_dot_product_attention``, cuBLAS): the yardstick only."""
@@ -1409,7 +1551,8 @@ def run_path(profile: bool) -> dict:
     pcm, scales = sep.separate_all_pcm(song)
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in _read_counters().items()
-                if k in ("layer_tail", "henc_freq_fused", "group_norm")}
+                if k in ("layer_tail", "henc_freq_fused", "group_norm",
+                         "dec_join")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
     rate = 4 * SONG_SECONDS / wall
@@ -1427,6 +1570,10 @@ def run_path(profile: bool) -> dict:
     for name, count in launches.items():
         if count <= 0:
             raise SmokeFailure(f"{name} was not launched on the main path")
+    if launches["dec_join"] != 8 * launches["henc_freq_fused"]:
+        raise SmokeFailure(f"{launches['dec_join']} decoder joins for "
+                           f"{launches['henc_freq_fused']} groups, want 8 "
+                           "a group")
 
     wav = torch.from_numpy((0.1 * rng.standard_normal(
         (1, 2, int(CHUNK_SECONDS * SAMPLE_RATE)))).astype(np.float32)).cuda()
@@ -2159,9 +2306,11 @@ def run_serving(profile: bool) -> dict:
                       f"{steps['n']} steps")
                 if (launches["layer_tail"] != 10 * steps["n"]
                         or launches["henc_freq_fused"] != steps["n"]
+                        or launches["dec_join"] != 8 * steps["n"]
                         or steps["n"] <= 0):
                     raise SmokeFailure("the stream did not run layer_tail "
-                                       "10 and henc_freq_fused once a step")
+                                       "10, henc_freq_fused once and "
+                                       "dec_join 8 times a step")
         result["stream"] = streams
 
         # /api/separate_all, 4 stems, against a direct separate_all_pcm
@@ -3220,9 +3369,9 @@ def _default_and_opt_in(model, song: np.ndarray) -> dict:
           f"steps; rms against the default's separate_all per stem "
           f"{vs_default}; programs {out['opt_in']['programs']}")
     if (set(launches) != {"henc_freq_fused", "dconv_rows", "attn_block",
-                          "stft", "group_norm"} or diff != 0):
+                          "stft", "group_norm", "dec_join"} or diff != 0):
         raise SmokeFailure("the opt-in group programs did not run rows 2-6 "
-                           "or differ from the eager body")
+                           "and 9 or differ from the eager body")
     del sep
 
     # the head divides by the mixture's signed CaC plane + 1e-8, so the
@@ -3617,7 +3766,8 @@ def main(argv: list) -> int:
         gen = torch.Generator().manual_seed(SEED)
         kernels = [check_layer_tail(gen, profile), check_henc(gen, profile),
                    check_dconv(gen, profile), check_attn_block(gen, profile),
-                   check_stft(gen), check_group_norm(gen)]
+                   check_stft(gen), check_group_norm(gen),
+                   check_dec_join(gen)]
         k_eval = [eval_layer_tail(gen, profile), eval_henc(gen),
                   eval_dconv(gen), eval_attn_block(gen), eval_stft(gen)]
         for k, at_eval in zip(kernels, k_eval):
@@ -3664,7 +3814,7 @@ def main(argv: list) -> int:
                 if k in ("name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "stream_launches",
-                         "learn_launches")
+                         "learn_launches", "join_ms", "join_bound_ms")
                 or k.startswith(("eval_", "stream_"))
                 and not k.endswith("_forms")}
                for kern in kernels]

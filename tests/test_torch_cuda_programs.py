@@ -92,8 +92,10 @@ def test_group_programs_equal_the_eager_body_bit_for_bit(sep):
     finally:
         select.zero_launch_counts()
         select.add_launch_counts(saved)
-    # two replays: 10 crosstransformer layers and freq layer 0 each
+    # two replays: 10 crosstransformer layers, freq layer 0 and the head's
+    # 8 decoder joins each
     assert counts["layer_tail"] == 20 and counts["henc_freq_fused"] == 2
+    assert counts["dec_join"] == 16
     want = eager_all_pcm(sep, song, STEMS)
     np.testing.assert_array_equal(first, want)
     np.testing.assert_array_equal(second, want)

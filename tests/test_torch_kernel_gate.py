@@ -187,13 +187,15 @@ def test_widths_no_kernel_takes_skip(as_if_on_a_card):
 
 def test_kernels_of_the_per_op_pass_do_not_count(as_if_on_a_card,
                                                  monkeypatch):
-    """A kernel that both passes launch (GroupNorm's, which follows the
-    device under every selection) is no kernel of the selection: a pass
-    that launched only it is kept as skipped."""
+    """Kernels that both passes launch (GroupNorm's and the decoder join,
+    which follow the device under every selection) are no kernels of the
+    selection: a pass that launched only them is kept as skipped."""
     monkeypatch.setattr(fused_norm.group_norm, "launches", 0)
+    monkeypatch.setattr(fused_norm.decoder_join, "launches", 0)
 
     def norms(sel, x):
         fused_norm.group_norm.launches += 2
+        fused_norm.decoder_join.launches += 8
         return _diverging(sel, x)
 
     assert kernel_gate.ensure_layer_parity(

@@ -243,7 +243,8 @@ class TestHttpServer:
             text = r.read().decode()
         for name in ("program_captures", "program_replays", "text_tower_runs",
                      "chunks_computed", "chunks_padded",
-                     "launches_layer_tail", "launches_group_norm"):
+                     "launches_layer_tail", "launches_group_norm",
+                     "launches_dec_join"):
             assert f"# TYPE atsm_{name}_total counter" in text
         line = next(ln for ln in text.splitlines()
                     if ln.startswith("atsm_chunks_computed_total "))

@@ -94,7 +94,7 @@ def test_counts_carry_the_launch_counters_and_reset():
     assert got["test.events"] == 3
     assert {"launches.layer_tail", "launches.henc_freq_fused",
             "launches.dconv_rows", "launches.attn_block",
-            "launches.stft", "launches.group_norm",
+            "launches.stft", "launches.group_norm", "launches.dec_join",
             "launches.attn_gated", "launches.rope_qkv"} <= set(got)
     profiling.reset_counts()
     assert "test.events" not in profiling.counts()
