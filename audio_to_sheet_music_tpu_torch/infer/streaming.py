@@ -56,10 +56,7 @@ class StreamingSeparator:
 
     def __init__(self, separator, stems: Sequence[str] = STEM_NAMES,
                  block_chunks: int = 8):
-        if separator._roformer:
-            raise ValueError("StreamingSeparator: BS-RoFormer is served "
-                             "whole-song only (separate_all_pcm, "
-                             "separate_pcm)")
+        separator.serving.check("stream")
         with profiling.span("atsm.stream.open"):
             self.sep = separator
             self.stems = list(stems)
@@ -72,7 +69,7 @@ class StreamingSeparator:
             # and feed() would never drain its buffer
             self.overlap = min(separator.overlap, self.segment - 1)
             self.hop = self.segment - self.overlap
-            self._embs = separator._stem_embs(self.stems)   # (S, 512), device
+            self._embs = separator.serving.stem_inputs(self.stems)
             self._buf = np.zeros((2, 0), np.float32)        # pending input
             self._acc = None                                # carry (S*2, tail)
             self._wsum = None                               # carry (tail,)

@@ -30,8 +30,9 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,8 +40,9 @@ from ..convert import jax_params
 from ..nn import core as L
 from ..nn import prng
 from ..nn.attention import MHA
-from ..ops import dsp, fused_norm
+from ..ops import dsp, fused_norm, kernel_gate
 from ..ops.select import Kernels, resolve
+from ..text.tokenizer import default_tokenizer
 from ..utils import profiling
 from . import clap_text, htdemucs
 
@@ -123,6 +125,80 @@ class AudioTextHTDemucs(nn.Module):
         # True once converted reference weights are loaded (``load_params``
         # of a ``.pt``): the tokenizer then refuses the hash fallback
         self.pretrained = False
+
+    def serving(self, tokenizer=None, normalize_text: bool = False):
+        """What an ``infer.Separator`` serves this model through."""
+        return Serving(self, tokenizer, normalize_text)
+
+    def gate_pair(self, compute_dtype: torch.dtype):
+        """The kernel parity gate's ``(forward, args)``, the JAX gate's: the
+        text-conditioned forward of one seeded 6 s chunk at 0.1 rms with a
+        seeded unit-scale embedding, on the model's device."""
+        device = next(self.parameters()).device
+        rng = np.random.default_rng(0)
+        t = int(kernel_gate.GATE_SECONDS * kernel_gate.SAMPLE_RATE)
+        wav = 0.1 * rng.standard_normal((1, 2, t))
+        emb = rng.standard_normal((1, TEXT_DIM)) / np.sqrt(TEXT_DIM)
+
+        def fwd(sel, m, w, e):
+            return forward_with_text_emb(m, w, e, compute_dtype, sel)
+
+        return fwd, (self, *(torch.from_numpy(a.astype(np.float32)).to(device)
+                             for a in (wav, emb)))
+
+
+class Serving:
+    """An ``AudioTextHTDemucs`` behind an ``infer.Separator``: a prompt's text
+    tower run once (a pretrained tower refuses the hash tokenizer), a stem
+    list's ``(S, 512)`` embeddings kept as a program's input (a warm sweep
+    launches no stack); every path (a mesh, streams) serves it."""
+
+    def __init__(self, model: AudioTextHTDemucs, tokenizer, normalize_text):
+        self.model, self.normalize_text = model, normalize_text
+        self.tokenizer = tokenizer or default_tokenizer(
+            require_real=model.pretrained)
+        self._emb_cache: Dict[str, torch.Tensor] = {}
+        self._stems_cache: Dict[tuple, torch.Tensor] = {}
+
+    def check(self, path: str) -> None:
+        """Nothing refused."""
+
+    @torch.inference_mode()
+    def text_embedding(self, prompt: str) -> torch.Tensor:
+        """(512,) f32 embedding on the model's device, cached per prompt."""
+        if prompt in self._emb_cache:
+            profiling.count("text.cache_hits")
+        else:
+            device = next(self.model.parameters()).device
+            ids, mask = self.tokenizer([prompt])
+            self._emb_cache[prompt] = encode_text(
+                self.model, torch.from_numpy(ids).to(device),
+                torch.from_numpy(mask).to(device), self.normalize_text)[0]
+        return self._emb_cache[prompt]
+
+    def stem_inputs(self, stems: Sequence[str]) -> torch.Tensor:
+        key = tuple(stems)
+        if key in self._stems_cache:
+            profiling.count("text.cache_hits", len(key))
+        else:
+            self._stems_cache[key] = torch.stack(
+                [self.text_embedding(s) for s in key])
+        return self._stems_cache[key]
+
+    def prompt_input(self, prompt: str) -> torch.Tensor:
+        return self.text_embedding(prompt)[None]
+
+    def blank_inputs(self, n: int) -> torch.Tensor:
+        return torch.zeros((n, TEXT_DIM),
+                           device=next(self.model.parameters()).device)
+
+    @staticmethod
+    def heads(model, chunks, embs, compute_dtype, kernels) -> torch.Tensor:
+        """(n, 2, seg) chunks -> (n, S*2, seg): encoder once, S heads."""
+        out = apply_head_multi(
+            model, encode_mixture(model, chunks, compute_dtype, kernels), embs)
+        s, b, c, l = out.shape
+        return out.permute(1, 0, 2, 3).reshape(b, s * c, l)
 
 
 def _keys(seed: int, device, materialize: bool) -> list:

@@ -50,15 +50,16 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..nn import prng
 from ..nn.core import Linear, RMSNorm, gelu, rms_normalize, rms_scale, split
-from ..ops import dsp, fused_attn, fused_rope
+from ..ops import dsp, fused_attn, fused_rope, kernel_gate
 from ..ops.select import Kernels, resolve
 from ..utils import profiling
 
@@ -183,6 +184,75 @@ class BSRoformer(nn.Module):
     def stems(self) -> Tuple[str, ...]:
         return self.cfg.stems
 
+    def serving(self, tokenizer=None, normalize_text: bool = False):
+        """What an ``infer.Separator`` serves this model through."""
+        return Serving(self, tokenizer)
+
+    def gate_pair(self, compute_dtype: torch.dtype):
+        """The kernel parity gate's ``(forward, args)``: layer 0 (each kernel
+        launch of a layer) over a 6 s chunk's seeded unit-rms tokens; a
+        tenth of its unit-order output, the scale the threshold was set on."""
+        cfg = self.cfg
+        frames = int(kernel_gate.GATE_SECONDS * kernel_gate.SAMPLE_RATE
+                     ) // cfg.hop + 1
+        x = np.random.default_rng(0).standard_normal(
+            (1, frames, len(cfg.freqs_per_bands), cfg.dim)).astype(np.float32)
+
+        def fwd(sel, m, tokens):
+            return 0.1 * axial_layer(m, 0, tokens, _uses_kernel(resolve(sel))
+                                     ).float()
+
+        return fwd, (self, torch.from_numpy(x).to(
+            next(self.parameters()).device, compute_dtype))
+
+
+class Serving:
+    """A ``BSRoformer`` behind an ``infer.Separator``: the model's own stem
+    names as ``(S,)`` indices, kept per stem list; no text prompts, whole
+    songs on one device."""
+
+    def __init__(self, model: BSRoformer, tokenizer):
+        self.model, self.tokenizer = model, tokenizer
+        self._stems_cache: Dict[tuple, torch.Tensor] = {}
+
+    def check(self, path: str) -> None:
+        """Whole songs on one device: no ``mesh``, no ``stream``."""
+        raise ValueError(
+            "Separator: a BS-RoFormer model runs on one device; no mesh"
+            if path == "mesh" else "StreamingSeparator: BS-RoFormer is "
+            "served whole-song only (separate_all_pcm, separate_pcm)")
+
+    def text_embedding(self, prompt: str) -> torch.Tensor:
+        raise TypeError("Separator: BS-RoFormer takes stem names, not text "
+                        "prompts")
+
+    def stem_inputs(self, stems: Sequence[str]) -> torch.Tensor:
+        key = tuple(stems)
+        if key not in self._stems_cache:
+            own = self.model.stems
+            unknown = [s for s in key if s not in own]
+            if unknown:
+                raise ValueError(f"Separator: this BS-RoFormer separates "
+                                 f"{list(own)}; no stem {unknown}")
+            self._stems_cache[key] = torch.tensor(
+                [own.index(s) for s in key],
+                device=next(self.model.parameters()).device)
+        return self._stems_cache[key]
+
+    def prompt_input(self, prompt: str) -> torch.Tensor:
+        return self.stem_inputs([prompt])
+
+    def blank_inputs(self, n: int) -> torch.Tensor:
+        return torch.zeros((n,), dtype=torch.int64,
+                           device=next(self.model.parameters()).device)
+
+    @staticmethod
+    def heads(model, chunks, picks, compute_dtype, kernels) -> torch.Tensor:
+        """(n, 2, seg) chunks, (S,) stem indices -> (n, S*2, seg)."""
+        out = forward(model, chunks, compute_dtype, kernels)
+        out = out.index_select(1, picks)
+        return out.reshape(out.shape[0], -1, out.shape[-1])
+
 
 def init(cfg: Config = PUBLISHED, seed: int = 0, materialize: bool = True,
          device: str | torch.device = "cpu") -> BSRoformer:
@@ -253,13 +323,6 @@ def axial_layer(model: BSRoformer, i: int, x: torch.Tensor, kernel: bool
     x = transformer(time_t, x, model.cfg, kernel)
     x = x.reshape(b, nb, t, d).transpose(1, 2).reshape(b * t, nb, d)
     return transformer(band_t, x, model.cfg, kernel).reshape(b, t, nb, d)
-
-
-def layer_forward(model: BSRoformer, i: int, x: torch.Tensor,
-                  kernels: Kernels = True) -> torch.Tensor:
-    """``axial_layer`` under the kernel selection ``kernels`` (the parity
-    gate's unit)."""
-    return axial_layer(model, i, x, _uses_kernel(resolve(kernels)))
 
 
 def band_split(m: BandSplit, feats: torch.Tensor, cfg: Config,

@@ -2,9 +2,9 @@
 
 Counterpart of ``audio_to_sheet_music_tpu/ops/kernel_gate.py``.  The
 kernels' tests compare each one with its plain version at chosen shapes;
-this gate runs one whole text-conditioned forward of a 6 s chunk twice on
-the live device, per op (``kernels="none"``) and with the separator's
-selection, same inputs and weights, and compares the stems.
+this gate runs the model's own forward of a 6 s chunk (``gate_pair``)
+twice on the live device, per op (``kernels="none"``) and with the
+separator's selection, same inputs and weights, and compares the outputs.
 
 On divergence beyond the threshold (1e-3 rms on a ~0.1-rms stem) it
 **raises** ``KernelParityError``, naming the rms, the reference's rms, the
@@ -22,11 +22,6 @@ launch counters say so, ``select.launch_counts``), and
 ``ATSM_SKIP_PARITY_GATE=1``, the JAX package's own opt-out.
 ``verify_layer_parity`` reads no environment: the selection is an
 argument.
-
-For a BS-RoFormer (``models.bs_roformer``) the forward is one of its
-layers, whose RoPE and attention the selection sends to
-``fused_rope.rope_qkv`` and ``fused_attn.attn_gated``
-(``_roformer_pair``).
 
 Call site: ``infer.session.Separator`` construction, on each distinct
 device of its mesh.
@@ -74,50 +69,6 @@ def _device_of(model, args) -> torch.device:
     return torch.device("cpu")
 
 
-def _roformer_pair(model, compute_dtype) -> Tuple[Callable, tuple]:
-    """``(forward, args)`` for a BS-RoFormer: its first layer (the time and
-    the band transformer, every kernel launch of a layer) over the
-    seeded unit-rms token grid of a 6 s chunk.  The layer's output is of
-    unit order (its branches read RMS-normed tokens), so the gate compares
-    a tenth of it, the scale of the stems the threshold was set on."""
-    from ..models import bs_roformer
-
-    device = _device_of(model, None)
-    cfg = model.cfg
-    frames = int(GATE_SECONDS * SAMPLE_RATE) // cfg.hop + 1
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal(
-        (1, frames, len(cfg.freqs_per_bands), cfg.dim)).astype(np.float32))
-
-    def fwd(sel, m, tokens):
-        return 0.1 * bs_roformer.layer_forward(m, 0, tokens, sel).float()
-
-    return fwd, (model, x.to(device, compute_dtype))
-
-
-def _default_pair(model, compute_dtype) -> Tuple[Callable, tuple]:
-    """``(forward, args)`` for the gate: the text-conditioned forward of one
-    seeded 6 s chunk at 0.1 rms and a seeded unit-scale embedding, on the
-    model's device; ``forward(selection, *args)``.  A BS-RoFormer takes
-    ``_roformer_pair``."""
-    from ..models import atht, bs_roformer
-
-    if isinstance(model, bs_roformer.BSRoformer):
-        return _roformer_pair(model, compute_dtype)
-    device = _device_of(model, None)
-    rng = np.random.default_rng(0)
-    t = int(GATE_SECONDS * SAMPLE_RATE)
-    wav = torch.from_numpy(
-        (0.1 * rng.standard_normal((1, 2, t))).astype(np.float32))
-    emb = torch.from_numpy(
-        (rng.standard_normal((1, 512)) / np.sqrt(512)).astype(np.float32))
-
-    def fwd(sel, m, w, e):
-        return atht.forward_with_text_emb(m, w, e, compute_dtype, sel)
-
-    return fwd, (model, wav.to(device), emb.to(device))
-
-
 def verify_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
                         threshold: float = RMS_THRESHOLD,
                         kernels: Kernels = True,
@@ -129,12 +80,12 @@ def verify_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
     "card", "seconds", "launches"}`` (``launches``: the kernels the kernel
     pass launched, by name, with their counts, leaving out those the per-op
     pass launched too, such as GroupNorm's, which no selection chooses);
-    raises nothing (that is
-    ``ensure_layer_parity``'s job).  ``forward(selection, *args)`` / ``args`` replace the default
-    pair (tests inject a divergent path this way)."""
+    raises nothing (that is ``ensure_layer_parity``'s job).
+    ``forward(selection, *args)`` / ``args`` replace the model's own pair,
+    ``model.gate_pair(compute_dtype)`` (tests inject a divergent path)."""
     sel = resolve(kernels)
     if forward is None or args is None:
-        forward, args = _default_pair(model, compute_dtype)
+        forward, args = model.gate_pair(compute_dtype)
     device = _device_of(model, args)
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -168,8 +119,8 @@ def ensure_layer_parity(model, compute_dtype: torch.dtype = torch.bfloat16,
     ``KernelParityError`` if they diverge.
 
     Returns None where the gate skips (``ATSM_SKIP_PARITY_GATE=1``, the
-    ``none`` selection, the default pair on a CPU device, and a card where
-    the kernel pass launched nothing: that result is kept with a
+    ``none`` selection, the model's own pair on a CPU device, and a card
+    where the kernel pass launched nothing: that result is kept with a
     ``skipped`` reason), else the result (cached after the first run for
     the same selection, device and model class; a cached failure raises
     again)."""

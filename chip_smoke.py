@@ -277,9 +277,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the benchmark's yardstick, one copy: peaks, work, kernel groups, launches
+from port_bench.common import (HENC_KERNELS, HOST_LAUNCHES,
+                               LAYER_TAIL_KERNELS, MEMORY_BYTES_PER_S,
+                               busy_union, henc_work, kernel_group,
+                               layer_work)
+from port_bench.common import bound as _bound_s
+
 BF16_TENSOR_FLOPS = 0.0            # set in main: profiling.peak_tflops()
 F32_FLOPS = 67e12
-MEMORY_BYTES_PER_S = 3.35e12
 SEED = 0
 SAMPLE_RATE = 44100
 SONG_SECONDS = 60.0
@@ -444,10 +450,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict
 
 
 def bound(flops: float, nbytes: float, flop_rate: float) -> dict:
-    t_ops, t_bytes = flops / flop_rate * 1e3, nbytes / MEMORY_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+    """``port_bench.common.bound`` in ms, the unit of this smoke's rows."""
+    row = _bound_s(flops, nbytes, flop_rate)
+    return {"bound_ms": row.pop("bound_s") * 1e3, **row}
 
 
 def _print_times(row: dict) -> None:
@@ -685,15 +690,6 @@ def _layer_library(h, k, v, x, wq, bq, wo, bo, g1, lnw, lnb, w1, b1, w2, b2,
     return y1 + g2.to(dt) * f
 
 
-def _layer_work(b: int, l: int, s: int) -> tuple:
-    flops = 2.0 * b * l * (2 * D * D + 2 * s * D + 2 * D * FF)
-    nbytes = (2 * (2 * b * l * D + 2 * b * s * D)       # h, x, k, v in
-              + 2 * (2 * D * D + 2 * D * FF)            # bf16 weights
-              + 4 * (8 * D + FF)                        # f32 vectors
-              + 2 * b * l * D)                          # bf16 out
-    return flops, float(nbytes)
-
-
 def _tail_launch_work(b: int, l: int, s: int) -> dict:
     """Operations and bytes (each input read once, each output written
     once) of each of layer_tail's six launches."""
@@ -758,7 +754,7 @@ def _layer_tail_rows(gen: torch.Generator, b: int, forms: list,
                        lambda: fused_attn.layer_tail_plain(*args, HEADS),
                        iters),
                    "library_ms": cuda_ms(lambda: _layer_library(*args), iters),
-                   **bound(*_layer_work(b, l, s), BF16_TENSOR_FLOPS)}
+                   **bound(*layer_work(b, l, s, D, FF), BF16_TENSOR_FLOPS)}
         _print_times(row)
         rows.append(row)
         inputs.append(args)
@@ -831,11 +827,7 @@ def _henc_form(layer, b: int, t: int, weight: str, n: int,
                "plain_ms": cuda_ms(lambda: fused_enc.henc_freq_plain(layer, x),
                                    20),
                "library_ms": cuda_ms(library, 20)}
-    fo, h = f // 4, c // 8
-    flops = 2.0 * b * fo * t * (c * cin * 8 + 2 * (h * c * 3 + 2 * c * h)
-                                + 2 * c * c)
-    nbytes = 2.0 * (b * cin * f * t + b * c * fo * t)
-    row.update(bound(flops, nbytes, BF16_TENSOR_FLOPS))
+    row.update(bound(*henc_work(b, t, cin, f, c), BF16_TENSOR_FLOPS))
     _print_times(row)
     return row, x
 
@@ -1389,45 +1381,13 @@ def eval_stft(gen: torch.Generator) -> dict:
 # Phase 3: the full path
 # ---------------------------------------------------------------------------
 
-# kernel-name fragments -> the layer of the path they belong to (first match)
-KERNEL_GROUPS = [("layer_tail / attn_block", ("gemm_kernel<", "flash_kernel",
-                                               "ln_kernel")),
-                 ("henc_freq_fused", ("henc_",)),
-                 ("DConv routine (henc_freq_fused, dconv_rows)", ("dconv::",)),
-                 ("STFT kernel", ("stft_kernel",)),
-                 ("GroupNorm statistics", ("RowwiseMoments",)),
-                 ("cuDNN convolution", ("cudnn", "conv", "implicit", "dgrad",
-                                        "fprop")),
-                 ("matrix products", ("gemm", "cutlass", "xmma", "sm90",
-                                      "nvjet")),
-                 ("FFT", ("fft",)),
-                 ("copies to the host", ("Memcpy DtoH",)),
-                 ("copies to the card", ("Memcpy HtoD",)),
-                 ("casts and copies", ("copy",)),
-                 ("elementwise", ("elementwise",)),
-                 ("reductions", ("reduce",))]
-
-
-def kernel_group(name: str) -> str:
-    low = name.lower()
-    for group, parts in KERNEL_GROUPS:
-        if any(p.lower() in low for p in parts):
-            return group
-    return "other"
-
-
 def _device_busy_us(prof) -> float:
     """The union of the device intervals a profiler saw, in us."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy
+    return busy_union((e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
 
 
 def device_busy(fn) -> dict:
@@ -2973,7 +2933,7 @@ def _gate_and_mesh(model, path: dict, pcm3: np.ndarray) -> dict:
     if opt_in is None or not opt_in["ok"]:
         raise SmokeFailure("the opt-in gate did not run or did not pass")
     out["gate_opt_in"] = opt_in
-    fwd, args = kernel_gate._default_pair(model, torch.bfloat16)
+    fwd, args = model.gate_pair(torch.bfloat16)
 
     def diverging(sel, *a):
         y = fwd(sel, *a)
@@ -3004,7 +2964,7 @@ def _gate_and_mesh(model, path: dict, pcm3: np.ndarray) -> dict:
         chunks = torch.stack([grid_song[:, i * sep2.segment:
                                         (i + 1) * sep2.segment]
                               for i in range(4)])
-        embs = sep2._stem_embs(STEMS4)
+        embs = sep2.serving.stem_inputs(STEMS4)
         sep2._heads(chunks, embs)
         torch.cuda.synchronize()
         out["sync_points"] = _sync_points(lambda: sep2._heads(chunks, embs))
@@ -3101,7 +3061,6 @@ def run_learning_proof(card: str) -> dict:
 # memory, phase 6's stream step model
 EAGER_PEAK_GIB = 4.94
 EAGER_STREAM_FLOOR_S, EAGER_STREAM_PER_CHUNK_S = 0.0575, 0.0074
-HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
 class _eager:
@@ -3141,8 +3100,8 @@ def _programs_of(sep) -> dict:
 
 
 # the device kernels each wrapper of the default path launches, by name
-DEVICE_KERNELS = {"layer_tail": ("gemm_kernel<", "flash_kernel", "ln_kernel"),
-                  "henc_freq_fused": ("henc_", "dconv::")}
+DEVICE_KERNELS = {"layer_tail": LAYER_TAIL_KERNELS,
+                  "henc_freq_fused": HENC_KERNELS}
 
 
 def _host_calls(fn) -> tuple:
@@ -3281,7 +3240,7 @@ def _serving_programs(model, song: np.ndarray, path: dict) -> dict:
             lambda: sep.separate_all_pcm(song))
     counted = {k: v for k, v in _read_counters().items() if v}
     graphs = calls.get("cudaGraphLaunch", 0)
-    kernels = _launches_from_host(calls)
+    kernels = _launches_from_host(calls) - graphs     # launches but replays
     print(f"  host calls in one separate_all_pcm: cudaGraphLaunch {graphs}, "
           f"kernel launches {kernels}, cudaMemcpyAsync "
           f"{calls.get('cudaMemcpyAsync', 0)} (eager: kernel launches "

@@ -12,7 +12,10 @@ same reference with ``Prec("bf16")``, asserted beside it).  Also: the
 unnormalised inverse STFT the model uses is ``torch.istft``'s, the
 Separator's refusals, the published widths' parameter count, and ATHT's
 int16 output through the Separator is, bit for bit, its encoder and heads
-composed by hand.
+composed by hand.  The seam both models serve through (``serving``): ATHT's
+stem input is its stacked prompt embeddings, counted as cache hits as
+before; a model without the seam is refused at construction;
+``sweep_flops`` counts BS-RoFormer's forward.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from audio_to_sheet_music_tpu_torch.models import atht
 from audio_to_sheet_music_tpu_torch.models import bs_roformer as br
 from audio_to_sheet_music_tpu_torch.nn import core
 from audio_to_sheet_music_tpu_torch.ops import dsp
+from audio_to_sheet_music_tpu_torch.ops.select import NONE
+from audio_to_sheet_music_tpu_torch.utils import profiling
 from audio_to_sheet_music_tpu_torch.parallel.mesh import make_mesh
 from port_bench.reference import bs_roformer as ref
 from port_bench.reference import protocols
@@ -307,3 +312,48 @@ def test_atht_pcm_is_its_encoder_and_heads_bit_for_bit():
             acc, w = a[:, g * hop:], ws[g * hop:]
             start += g * hop
     np.testing.assert_array_equal(pcm, want.reshape(2, 2, n))
+
+
+def test_atht_stem_input_is_the_stacked_text_embeddings():
+    """``serving.stem_inputs`` of ATHT: the prompts' embeddings stacked,
+    kept per stem list; a list seen before counts one cache hit a stem, a
+    prompt seen before one hit."""
+    sep = Separator(atht.init_tiny(0), device="cpu", segment_seconds=0.5,
+                    overlap_seconds=0.05)
+
+    def hits():
+        return profiling.counts().get("text.cache_hits", 0)
+
+    before = hits()
+    got = sep.serving.stem_inputs(("vocals", "drums"))
+    assert hits() == before
+    want = torch.stack([sep.text_embedding("vocals"),
+                        sep.text_embedding("drums")])
+    assert hits() == before + 2
+    assert got.shape == (2, atht.TEXT_DIM) and torch.equal(got, want)
+    assert sep.serving.stem_inputs(["vocals", "drums"]) is got
+    assert hits() == before + 4
+    assert torch.equal(sep.serving.stem_inputs(("drums",)), want[1:])
+    assert hits() == before + 5
+
+
+def test_separator_refuses_a_model_without_a_serving_seam():
+    with pytest.raises(TypeError, match="Linear has no serving seam"):
+        Separator(torch.nn.Linear(2, 2), device="cpu")
+
+
+def test_sweep_flops_counts_bs_roformer_forward():
+    """A song of one group: ``sweep_flops`` is the operations of
+    ``bs_roformer.forward`` on that group's chunks, whatever stems it
+    picks."""
+    model = br.init(br.TINY, seed=0)
+    sep = _separator(model)
+    length = sep.segment
+    grid = chunked.plan_chunks(length, sep.segment, sep.overlap, sep.bucket)
+    (g,) = sep._group_schedule(grid, 4)
+    want = profiling.flops_estimate(
+        br.forward, model, torch.zeros((g, 2, sep.segment)), torch.float32,
+        NONE)
+    assert want > 0
+    assert sep.sweep_flops(length, n_stems=1) == want
+    assert sep.sweep_flops(length, n_stems=2) == want

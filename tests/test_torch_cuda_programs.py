@@ -51,7 +51,7 @@ def eager_all_pcm(sep: Separator, song: np.ndarray, stems) -> np.ndarray:
     grid = chunked.plan_chunks(n, sep.segment, sep.overlap, sep.bucket)
     hop, seg, dev = grid.hop, grid.segment, sep.device
     scale = max(2.0 * float(np.abs(song).max()), 1e-8)
-    embs = sep._stem_embs(stems)
+    embs = sep.serving.stem_inputs(stems)
     scale_t = torch.tensor(scale, dtype=torch.float32, device=dev)
     length_t = torch.tensor(n, dtype=torch.int64, device=dev)
     acc = torch.zeros((len(stems) * 2, seg - hop), device=dev)
@@ -110,7 +110,7 @@ def test_sweep_and_stream_programs_equal_the_eager_bodies(sep):
                              grid.padded_length)
     padded = np.zeros((2, grid.padded_length), np.float32)
     padded[:, :song.shape[-1]] = song
-    embs = sep._stem_embs(("vocals",))
+    embs = sep.serving.stem_inputs(("vocals",))
     with torch.inference_mode():
         want = sep._sweep_body(
             torch.from_numpy(padded).cuda(), embs,

@@ -4,6 +4,10 @@
   package (an AST scan; the package's own name shares the JAX package's
   prefix and must pass), and importing it leaves ``jax`` out of
   ``sys.modules``.
+- Which model a ``Separator`` serves is decided behind the models' own
+  ``serving`` seam: ``ops/`` imports nothing from ``models`` (the layer
+  above it), and ``infer/`` names neither model class in an
+  ``isinstance``.
 - The full-width port model's ``state_dict`` names and shapes are exactly
   those of the full-width JAX ``atht.init`` tree, and a state dict built
   from those names loads with ``strict=True``.  Shapes only: the trees are
@@ -84,6 +88,39 @@ def test_import_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def _absolute_imports(path: Path):
+    """The modules a port file imports, relative imports resolved."""
+    package = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level \
+                else ()
+            module = ".".join((*base, *filter(None, [node.module])))
+            yield module
+            yield from (f"{module}.{a.name}" for a in node.names)
+
+
+def test_the_model_kind_is_decided_behind_the_serving_seam():
+    models = "audio_to_sheet_music_tpu_torch.models"
+    upward = {p.relative_to(ROOT).as_posix(): hits
+              for p in (PORT / "ops").rglob("*.py")
+              if (hits := [m for m in _absolute_imports(p)
+                           if m == models or m.startswith(models + ".")])}
+    assert not upward, upward
+    named = []
+    for p in (PORT / "infer").rglob("*.py"):
+        for node in ast.walk(ast.parse(p.read_text())):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", None) == "isinstance"
+                    and {"BSRoformer", "AudioTextHTDemucs"}
+                    & {getattr(n, "id", getattr(n, "attr", None))
+                       for a in node.args[1:] for n in ast.walk(a)}):
+                named.append(f"{p.relative_to(ROOT)}:{node.lineno}")
+    assert not named, named
 
 
 def test_full_width_names_load_strictly():

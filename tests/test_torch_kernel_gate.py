@@ -8,7 +8,8 @@ kernel takes (read on a card from the launch counters around the kernel
 pass) and under ``ATSM_SKIP_PARITY_GATE=1``; ``Separator``
 construction calls it on each distinct device.  Injected pairs give the JAX
 ``verify_layer_parity``'s ``rms`` / ``ref_rms`` (1e-6 relative), and the
-default pair (a seeded 6 s chunk through ``forward_with_text_emb``) gives
+model's own pair (``gate_pair``: a seeded 6 s chunk through
+``forward_with_text_emb``) gives
 the JAX default pair's stem at the same tiny weights (``ref_rms`` to 1e-4
 relative; on the CPU both kernel passes take the plain versions).
 """
@@ -265,11 +266,17 @@ def test_injected_pairs_match_jax(scale):
 
 
 def test_default_pair_matches_jax(tiny):
-    """The default pair is the JAX gate's (``_default_pair``: the same
-    seeded chunk and embedding); on the CPU both passes are plain."""
+    """ATHT's own pair (``AudioTextHTDemucs.gate_pair``, the one the gate
+    takes without an injected pair) is the JAX gate's ``_default_pair``:
+    the same seeded chunk and embedding; on the CPU both passes are
+    plain."""
     params, model = tiny
-    got = kernel_gate.verify_layer_parity(model, torch.float32)
+    _, args = model.gate_pair(torch.float32)
     _, (_, wav, emb) = JG._default_pair(params, jnp.float32)
+    assert args[0] is model
+    np.testing.assert_array_equal(args[1].numpy(), np.asarray(wav))
+    np.testing.assert_array_equal(args[2].numpy(), np.asarray(emb))
+    got = kernel_gate.verify_layer_parity(model, torch.float32)
     want = np.asarray(jax.jit(lambda p, w, e: JA.forward_with_text_emb(
         p, w, e, jnp.float32))(params, wav, emb))
     assert got["ok"] and got["rms"] < 1e-6

@@ -207,6 +207,7 @@ def test_cudnn_determinism_holds_only_inside_the_chunk_programs(
     deterministic algorithms and gives the process's setting back; any
     other separator (training's, the benchmark's) leaves it alone."""
     from audio_to_sheet_music_tpu_torch.infer import session
+    from audio_to_sheet_music_tpu_torch.models import atht
 
     monkeypatch.setenv("ATSM_TINY_MODEL", "1")
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
@@ -217,13 +218,13 @@ def test_cudnn_determinism_holds_only_inside_the_chunk_programs(
         sep = session.Separator(sep.model, segment_seconds=0.25,
                                 overlap_seconds=0.05, device="cpu")
     seen = []
-    encode = session.atht.encode_mixture
+    encode = atht.encode_mixture
 
     def spy(*args, **kwargs):
         seen.append(torch.backends.cudnn.deterministic)
         return encode(*args, **kwargs)
 
-    monkeypatch.setattr(session.atht, "encode_mixture", spy)
+    monkeypatch.setattr(atht, "encode_mixture", spy)
     song = (0.3 * np.random.default_rng(0).standard_normal((2, 30000))
             ).astype(np.float32)
     pcm = sep.separate_pcm(song, "vocals")
