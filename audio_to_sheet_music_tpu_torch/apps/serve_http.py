@@ -235,6 +235,9 @@ class ServiceMetrics:
     - ``chunks_computed`` / ``chunks_padded``: chunks ``/api/separate_all``
       ran, and those of them past the song's end (bucket padding: work
       that returns nothing).
+    - ``pcm_pieces`` / ``pcm_pieces_early``: the int16 pieces
+      ``/api/separate_all`` filled, and those filled while the card still
+      ran the song's later groups.
     - ``stream_blocks``: blocks the stream endpoint ran.
     - ``launches_<kernel>``: each hand-written kernel's launches, replays
       included (``ops.select.launch_counts``)."""

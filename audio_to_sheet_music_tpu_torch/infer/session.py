@@ -16,6 +16,8 @@ embedding cache: the text tower runs once per prompt) and the sweeps:
   quantises the samples whose weights are final to int16 against one shared
   scale (2 x the mixture's peak).  Each group's PCM goes to the host in one
   copy into pinned memory on a side stream, so it overlaps later groups;
+  once every group is enqueued, the host waits on each copy in turn and
+  fills that piece of the int16 output while the later groups run;
 - ``_stream_block``: one block of ``infer.streaming.StreamingSeparator``:
   ``block_chunks`` chunks through the encoder once and every stem's head,
   returning the unnormalised overlap-add ``(acc, wsum)`` on the device;
@@ -43,15 +45,15 @@ dtype and ``deterministic``.  ``scale``, a group's ``start`` and the song's
 serves every song of its geometry.  Inputs come from pinned host memory
 (``_stage``, ``_scalar``) or from other device tensors, so a warm
 ``separate_all_pcm`` launches no kernel from the host and never waits for
-the card before its last copy.  A program's outputs are rewritten by the
-next replay: every caller copies what it keeps first (``separate_all_pcm``
-clones each group's PCM before its copy to the host; ``_sweep`` copies
-the stems to the host, a copy of their own on the CPU too).  The JAX
-cache keeps every program; here a graph's pool keeps its memory for the
-graph's lifetime, so a ``Separator`` keeps at most ``SWEEP_PROGRAMS``
-whole-song programs, whose key follows the song's length, and drops the
-least recently used.  A ``Separator`` with a mesh of several slices runs
-the same functions eagerly.
+the card before its last group is enqueued.  A program's outputs are
+rewritten by the next replay: every caller copies what it keeps first
+(``separate_all_pcm`` clones each group's PCM before its copy to the
+host; ``_sweep`` copies the stems to the host, a copy of their own on the
+CPU too).  The JAX cache keeps every program; here a graph's pool keeps
+its memory for the graph's lifetime, so a ``Separator`` keeps at most
+``SWEEP_PROGRAMS`` whole-song programs, whose key follows the song's
+length, and drops the least recently used.  A ``Separator`` with a mesh
+of several slices runs the same functions eagerly.
 
 One deliberate difference from the JAX ``Separator``, whose default
 ``wire_dtype="pcm16"`` sends ``separate`` / ``separate_all``'s stems as
@@ -481,13 +483,22 @@ class Separator:
         with profiling.span("atsm.separate_all_pcm"):
             pieces, scale = self._enqueue_all_pcm(mixture, stems,
                                                   group_chunks, absolute)
-            with profiling.span("atsm.pcm.wait"):
-                if self._copy_stream is not None:
-                    self._copy_stream.synchronize()
-            with profiling.span("atsm.pcm.assemble"):
-                pcm = np.empty((n_stems * 2, length), np.int16)
-                for s0, host, take in pieces:
+            pcm = np.empty((n_stems * 2, length), np.int16)
+            n_pieces, early = len(pieces), 0
+            last = pieces[-1][3] if pieces else None
+            # each piece as soon as its copy has landed, while later groups
+            # run on the card: the output's pages are first touched here
+            while pieces:
+                s0, host, take, copied = pieces.pop(0)
+                with profiling.span("atsm.pcm.wait"):
+                    if copied is not None:
+                        copied.synchronize()
+                        early += not last.query()
+                with profiling.span("atsm.pcm.assemble"):
                     pcm[:, s0:s0 + take] = host.numpy()[:, :take]
+                del host        # the pinned block can go back to its cache
+            profiling.count("pcm.pieces", n_pieces)
+            profiling.count("pcm.pieces_early", early)
         return pcm.reshape(n_stems, 2, length), np.full((n_stems,), scale,
                                                         np.float32)
 
@@ -499,8 +510,10 @@ class Separator:
         then a clone of its PCM (the next replay rewrites the program's) and
         the clone's copy into pinned host memory on a side stream, which
         overlaps later groups.  Returns ``(pieces, scale)``, a piece
-        ``(start, host int16 (S*2, g*hop), valid columns)``.  Nothing in
-        here makes the host wait for the card."""
+        ``(start, host int16 (S*2, g*hop), valid columns, copied)``, where
+        ``copied`` is the CUDA event recorded on the copy stream after the
+        piece's copy (``None`` on the CPU, where ``host`` is ready).
+        Nothing in here makes the host wait for the card."""
         n_stems = len(stems)
         with profiling.span("atsm.pcm.scale"):
             song = np.ascontiguousarray(mixture)
@@ -531,7 +544,7 @@ class Separator:
             if cuda and self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
 
-        pieces = []                   # (start, host int16 buffer, valid cols)
+        pieces = []             # (start, host int16, valid cols, copied)
         start = 0
         for gi in schedule:
             take = min(gi * hop, length - start)
@@ -553,10 +566,12 @@ class Separator:
                         torch.cuda.current_stream(self.device))
                     with torch.cuda.stream(self._copy_stream):
                         host.copy_(q, non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record()
                     q.record_stream(self._copy_stream)
                 else:
-                    host = q
-            pieces.append((start, host, take))
+                    host, copied = q, None
+            pieces.append((start, host, take, copied))
             profiling.count("chunks.computed", gi)
             # chunks whose start lies at or past the song's end (bucket
             # padding): computed, and weighted zero

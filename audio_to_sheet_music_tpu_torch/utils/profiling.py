@@ -25,10 +25,14 @@ Spans and the counters they sit beside, by layer:
 - ``infer.session``: ``atsm.separate_all_pcm`` over the call, inside it
   ``atsm.pcm.scale`` (the mixture's peak, the group schedule and the
   groups' inputs), ``atsm.pcm.group`` a group (stage, program, clone, the
-  copy to the host enqueued), ``atsm.pcm.wait`` (the copy stream's
-  synchronise) and ``atsm.pcm.assemble`` (the pieces into the int16
-  array); counters ``chunks.computed`` (the chunks of the groups run) and
-  ``chunks.padded`` (those starting at or past the song's end).
+  copy to the host enqueued), then a piece at a time ``atsm.pcm.wait``
+  (the wait on that piece's copy) and ``atsm.pcm.assemble`` (the piece
+  into the int16 array, while later groups run on the card); counters
+  ``chunks.computed`` (the chunks of the groups run), ``chunks.padded``
+  (those starting at or past the song's end), ``pcm.pieces`` (pieces
+  filled) and ``pcm.pieces_early`` (those whose fill started before the
+  call's last copy had landed: the fills that overlap the card; none on
+  the CPU).
   ``atsm.sweep``: a whole-song program and its copy to the host.
   ``text.cache_hits``: prompts whose embedding came from the cache.
 - ``models.atht.encode_text``: ``atsm.model.text_tower``;

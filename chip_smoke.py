@@ -193,8 +193,8 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    (programs, eager, eager, programs); the host's CUDA calls in one call
    under ``torch.profiler`` (one ``cudaGraphLaunch`` a group and no kernel
    launched from the host, against the eager path's launches); the places
-   where the host waits for the card in it before its final synchronise
-   (``torch.cuda.set_sync_debug_mode``: none).  Then a default separator's
+   where the host waits for the card in it before its last group is
+   enqueued (``torch.cuda.set_sync_debug_mode``: none).  Then a default separator's
    PCM against its ``separate_all`` (the whole-song program) within 1e-3
    rms; a deterministic ``opt_in`` one's group programs, which must launch
    ``henc_freq_fused``, ``dconv_rows``, ``attn_block`` and the STFT
@@ -3266,11 +3266,11 @@ def _serving_programs(model, song: np.ndarray, path: dict) -> dict:
     waits = _sync_points(lambda: sep._enqueue_all_pcm(song, STEMS4, 4,
                                                       False))
     sep._copy_stream.synchronize()
-    print(f"  host waits in separate_all_pcm before its final synchronise "
-          f"(file:line: count): {waits}")
+    print(f"  host waits in separate_all_pcm before its last group is "
+          f"enqueued (file:line: count): {waits}")
     if waits:
         raise SmokeFailure("separate_all_pcm makes the host wait for the "
-                           "card before its final synchronise")
+                           "card before its last group is enqueued")
     return {"warmup_s": warm_s, "programs": captured, "pool_gib": pool_gib,
             "peak_gib_above_model": peak_gib, "reserved_gib": reserved_gib,
             "eager_memory": eager_mem, "launches": launches,

@@ -24,6 +24,7 @@ from audio_to_sheet_music_tpu_torch.infer import (Separator,
                                                   programs)
 from audio_to_sheet_music_tpu_torch.models import atht
 from audio_to_sheet_music_tpu_torch.ops import select
+from audio_to_sheet_music_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 STEMS = ("drums", "bass", "other", "vocals")
@@ -127,6 +128,52 @@ def test_sweep_and_stream_programs_equal_the_eager_bodies(sep):
         e_acc, e_wsum = sep._stream_block(torch.from_numpy(block).cuda(),
                                           embs, 2, stream.hop)
     assert torch.equal(acc, e_acc) and torch.equal(wsum, e_wsum)
+
+
+def test_pieces_fill_while_later_groups_run(sep):
+    """A 60 s song is 12 chunks, run as groups [2, 4, 4, 4]: four pieces.
+    Filled a piece at a time, the output holds the bytes the pieces give
+    after one whole-stream synchronise; every piece but the last (and one
+    spare) starts its fill while the song's last copy is still to come, and
+    the card runs during the fills."""
+    song = _song(60.0, seed=2)
+    n = song.shape[-1]
+    grid = chunked.plan_chunks(n, sep.segment, sep.overlap, sep.bucket)
+    assert sep._group_schedule(grid, 4) == [2, 4, 4, 4]
+    sep.separate_all_pcm(song, stems=STEMS)          # every program captured
+    pieces, _ = sep._enqueue_all_pcm(song, STEMS, 4, False)
+    sep._copy_stream.synchronize()
+    want = np.empty((len(STEMS) * 2, n), np.int16)
+    for s0, host, take, _ in pieces:
+        want[:, s0:s0 + take] = host.numpy()[:, :take]
+    del pieces
+
+    before = profiling.counts()
+    got, _ = sep.separate_all_pcm(song, stems=STEMS)
+    after = profiling.counts()
+    np.testing.assert_array_equal(got.reshape(len(STEMS) * 2, n), want)
+    filled = after["pcm.pieces"] - before.get("pcm.pieces", 0)
+    early = after["pcm.pieces_early"] - before.get("pcm.pieces_early", 0)
+    assert filled == 4 and early >= filled - 2, (filled, early)
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again, _ = sep.separate_all_pcm(song, stems=STEMS)
+    np.testing.assert_array_equal(again, got)
+    events = list(prof.profiler.kineto_results.events())
+
+    def on_card(e) -> bool:
+        return str(e.device_type()).endswith("CUDA")
+
+    # the spans' host ranges; kernels and copies, not the spans' projections
+    # onto the card's timeline
+    fills = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+             if e.name() == "atsm.pcm.assemble" and not on_card(e)]
+    work = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+            if on_card(e) and not e.name().startswith("atsm.")]
+    assert len(fills) == 4 and work
+    assert any(a < d and c < b for a, b in fills for c, d in work)
 
 
 def test_program_outputs_are_static_on_the_card():

@@ -235,6 +235,7 @@ class TestHttpServer:
         after = counters()
         delta = {k: v - before.get(k, 0) for k, v in after.items()}
         assert delta["chunks.computed"] == 2 and delta["chunks.padded"] == 1
+        assert delta["pcm.pieces"] == 1 and delta["pcm.pieces_early"] == 0
         assert delta["program.replays"] == 1
         assert after["program.captures"] >= 1
         assert after["text.tower_runs"] >= 1
@@ -242,7 +243,8 @@ class TestHttpServer:
         with urllib.request.urlopen(f"{url}/api/metrics", timeout=30) as r:
             text = r.read().decode()
         for name in ("program_captures", "program_replays", "text_tower_runs",
-                     "chunks_computed", "chunks_padded",
+                     "chunks_computed", "chunks_padded", "pcm_pieces",
+                     "pcm_pieces_early",
                      "launches_layer_tail", "launches_group_norm",
                      "launches_dec_join"):
             assert f"# TYPE atsm_{name}_total counter" in text

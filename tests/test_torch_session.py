@@ -156,6 +156,57 @@ def test_int16_song_and_absolute_scale(separators, song):
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
+def _one_shot_pcm(sep, song, stems):
+    """``separate_all_pcm``'s int16 output filled the way it was before the
+    per-piece fill: every piece enqueued and landed, then all copied in at
+    once.  Returns the output and the number of pieces."""
+    pieces, _ = sep._enqueue_all_pcm(song, stems, 4, False)
+    out = np.empty((len(stems) * 2, song.shape[-1]), np.int16)
+    for s0, host, take, copied in pieces:
+        assert copied is None                   # no copy to wait on here
+        out[:, s0:s0 + take] = host.numpy()[:, :take]
+    return out.reshape(len(stems), 2, -1), len(pieces)
+
+
+@pytest.mark.parametrize("length,schedule,n_pieces", [
+    # [2, 4, 4]: the last group clipped, its last chunk past the end
+    (75_000, [2, 4, 4], 3),
+    # 17 chunks bucketed to 24: the schedule covers 26 and its last two
+    # groups start past the end, so 5 pieces, the last one clipped
+    (145_000, [2, 4, 4, 4, 4, 4, 4], 5),
+    # a 4-chunk grid is one group
+    (30_000, [4], 1),
+])
+def test_per_piece_fill_gives_the_one_shot_bytes(separators, length,
+                                                 schedule, n_pieces):
+    port, _, _ = separators
+    song = (0.3 * np.random.default_rng(length).standard_normal(
+        (2, length))).astype(np.float32)
+    grid = TC.plan_chunks(length, port.segment, port.overlap)
+    assert port._group_schedule(grid, 4) == schedule
+    want, pieces = _one_shot_pcm(port, song, ("drums", "vocals"))
+    assert pieces == n_pieces
+    got, _ = port.separate_all_pcm(song, stems=("drums", "vocals"))
+    assert got.dtype == np.int16 and got.shape == (2, 2, length)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_separate_all_pcm_returns_an_array_of_its_own(separators, song):
+    port, _, _ = separators
+    first, _ = port.separate_all_pcm(song[:, :75_000], stems=("vocals",))
+    kept = first.copy()
+    root = first
+    while isinstance(root.base, np.ndarray):
+        root = root.base
+    # numpy's own allocation, not a view of a piece's tensor
+    assert root.base is None and root.flags.owndata
+    second, _ = port.separate_all_pcm(song[:, ::-1][:, :75_000].copy(),
+                                      stems=("vocals",))
+    assert not np.shares_memory(first, second)
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(first, second)
+
+
 @pytest.mark.parametrize("length,bucket", [(1, "auto"), (88200, "auto"),
                                            (400000, "auto"), (50000, 4)])
 def test_plan_chunks_matches(length, bucket):

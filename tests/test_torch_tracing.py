@@ -119,12 +119,14 @@ def test_separate_all_pcm_spans_and_counters(sep):
     assert got.get("text.tower_runs", 0) == 0 and got["text.cache_hits"] == 4
     # chunk 9 starts at 79,380, past the song's end
     assert got["chunks.computed"] == 10 and got["chunks.padded"] == 1
+    # a piece a group, none of them waiting on a copy on the CPU
+    assert got["pcm.pieces"] == 3 and got["pcm.pieces_early"] == 0
 
     top = [s for s in spans if s[0] == "atsm.separate_all_pcm"]
     assert len(top) == 1
     kids = [s for s in spans if s[0].startswith("atsm.pcm.")]
     assert _names(kids) == ["atsm.pcm.scale"] + ["atsm.pcm.group"] * 3 + [
-        "atsm.pcm.wait", "atsm.pcm.assemble"]
+        "atsm.pcm.wait", "atsm.pcm.assemble"] * 3
     assert all(_inside(k, top[0]) for k in kids)
     groups = [s for s in kids if s[0] == "atsm.pcm.group"]
     replays = [s for s in spans if s[0] == "atsm.program.replay"]
