@@ -38,8 +38,9 @@
 //      first merges its row's triples in a fixed order (one warp; a second
 //      for GLU's partner row) to mean and rstd = 1 / sqrt(var + eps), var
 //      biased, then streams its slice once: (x - mean) (rstd w[c]) + b[c]
-//      in f32, GELU (exact erf) or GLU (a sigmoid(b) over the
-//      channel halves, both halves normalised), one rounding to the
+//      in f32, GELU (exact erf), GLU (a sigmoid(b) over the
+//      channel halves, both halves normalised) or SiLU (y sigmoid(y),
+//      SCNet's convolution modules), one rounding to the
 //      input's dtype.  The channel is tracked by increments, so the loop
 //      divides only once a thread.
 //
@@ -97,7 +98,7 @@ namespace {
 
 constexpr int MAX_NT = 256;   // threads a block at most
 constexpr int UNROLL = 4;     // 16-byte loads in flight a thread
-enum Act { NONE = 0, GELU = 1, GLU = 2 };
+enum Act { NONE = 0, GELU = 1, GLU = 2, SILU = 3 };
 
 typedef __nv_bfloat16 bf16;
 
@@ -358,6 +359,7 @@ __device__ __forceinline__ float activate(float a, float b, float mean_a,
   const float y = fmaf(a - mean_a, k.sa, k.ba);
   if (ACT == GELU) return 0.5f * y * (1.0f + erff(y * 0.70710678118654752f));
   if (ACT == GLU) return y / (1.0f + expf(-fmaf(b - mean_b, k.sb, k.bb)));
+  if (ACT == SILU) return y / (1.0f + expf(-y));
   return y;
 }
 
@@ -623,6 +625,9 @@ cudaError_t run_act(int act, const void* x, const float* w, const float* b,
   if (act == GLU)
     return run<T, GLU>(x, w, b, out, part, stats, rows, g, chunk1, segments,
                        stream);
+  if (act == SILU)
+    return run<T, SILU>(x, w, b, out, part, stats, rows, g, chunk1, segments,
+                        stream);
   return run<T, NONE>(x, w, b, out, part, stats, rows, g, chunk1, segments,
                       stream);
 }
@@ -658,7 +663,7 @@ cudaError_t run_join(const void* y, const float* w, const float* b,
 }  // namespace
 
 // x -> out on `stream`, both contiguous and 16-byte aligned, dtype 0 f32,
-// 1 bf16; act 0 none, 1 GELU, 2 GLU.  rows = B G rows of n elements each,
+// 1 bf16; act 0 none, 1 GELU, 2 GLU, 3 SiLU.  rows = B G rows of n elements each,
 // C channels a batch item, inner elements a channel step.  Launch 1 cuts a
 // row into `splits` slices of chunk1 elements (the last fewer); launch 2
 // cuts each of `segments` output segments of seg_len elements into `bps`
@@ -678,7 +683,8 @@ extern "C" int gn1_launch(const void* x, int dtype, int act, const float* w,
     return (int)cudaErrorMisalignedAddress;
   if (rows < 1 || n < 1 || C < 1 || G < 1 || inner < 1 ||
       inner > (1 << 29) || splits < 1 ||
-      bps < 1 || (stats != nullptr && act != NONE) ||
+      bps < 1 || act < NONE || act > SILU ||
+      (stats != nullptr && act != NONE) ||
       (act == GLU && (C % 2 || (G > 1 && G % 2))))
     return (int)cudaErrorInvalidValue;
   Geo g = {n, seg_len, chunk2, inner, C, G, splits, bps, eps};

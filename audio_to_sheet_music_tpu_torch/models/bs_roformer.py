@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +62,7 @@ from ..nn.core import Linear, RMSNorm, gelu, rms_normalize, rms_scale, split
 from ..ops import dsp, fused_attn, fused_rope, kernel_gate
 from ..ops.select import Kernels, resolve
 from ..utils import profiling
+from .stem_serving import StemServing
 
 # the vocal model's bands: 62 bands over the 1025 bins of n_fft 2048
 VOCAL_BANDS = ((2,) * 24 + (4,) * 12 + (12,) * 8 + (24,) * 8 + (48,) * 8
@@ -206,52 +207,14 @@ class BSRoformer(nn.Module):
             next(self.parameters()).device, compute_dtype))
 
 
-class Serving:
-    """A ``BSRoformer`` behind an ``infer.Separator``: the model's own stem
-    names as ``(S,)`` indices, kept per stem list; no text prompts, whole
-    songs on one device."""
+class Serving(StemServing):
+    """A ``BSRoformer`` behind an ``infer.Separator``: its own stem names, no
+    text prompts, whole songs on one device (``stem_serving``)."""
 
-    def __init__(self, model: BSRoformer, tokenizer):
-        self.model, self.tokenizer = model, tokenizer
-        self._stems_cache: Dict[tuple, torch.Tensor] = {}
+    name = "BS-RoFormer"
 
-    def check(self, path: str) -> None:
-        """Whole songs on one device: no ``mesh``, no ``stream``."""
-        raise ValueError(
-            "Separator: a BS-RoFormer model runs on one device; no mesh"
-            if path == "mesh" else "StreamingSeparator: BS-RoFormer is "
-            "served whole-song only (separate_all_pcm, separate_pcm)")
-
-    def text_embedding(self, prompt: str) -> torch.Tensor:
-        raise TypeError("Separator: BS-RoFormer takes stem names, not text "
-                        "prompts")
-
-    def stem_inputs(self, stems: Sequence[str]) -> torch.Tensor:
-        key = tuple(stems)
-        if key not in self._stems_cache:
-            own = self.model.stems
-            unknown = [s for s in key if s not in own]
-            if unknown:
-                raise ValueError(f"Separator: this BS-RoFormer separates "
-                                 f"{list(own)}; no stem {unknown}")
-            self._stems_cache[key] = torch.tensor(
-                [own.index(s) for s in key],
-                device=next(self.model.parameters()).device)
-        return self._stems_cache[key]
-
-    def prompt_input(self, prompt: str) -> torch.Tensor:
-        return self.stem_inputs([prompt])
-
-    def blank_inputs(self, n: int) -> torch.Tensor:
-        return torch.zeros((n,), dtype=torch.int64,
-                           device=next(self.model.parameters()).device)
-
-    @staticmethod
-    def heads(model, chunks, picks, compute_dtype, kernels) -> torch.Tensor:
-        """(n, 2, seg) chunks, (S,) stem indices -> (n, S*2, seg)."""
-        out = forward(model, chunks, compute_dtype, kernels)
-        out = out.index_select(1, picks)
-        return out.reshape(out.shape[0], -1, out.shape[-1])
+    def separate(self, model, chunks, compute_dtype, kernels) -> torch.Tensor:
+        return forward(model, chunks, compute_dtype, kernels)
 
 
 def init(cfg: Config = PUBLISHED, seed: int = 0, materialize: bool = True,

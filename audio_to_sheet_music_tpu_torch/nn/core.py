@@ -173,7 +173,7 @@ def group_norm(m: Norm, x: torch.Tensor, num_groups: int,
                eps: float = 1e-5, act: str = "none",
                layout: str = "channels") -> torch.Tensor:
     """torch GroupNorm, stats and affine in f32, then ``act`` (``"none"``,
-    ``"gelu"``, ``"glu"`` over the channel halves).  ``layout``
+    ``"gelu"``, ``"glu"`` over the channel halves, ``"silu"``).  ``layout``
     ``"channels"``: (B, C, *spatial); ``"tokens"``: a (B, L, C) stream,
     one group, stats over (L, C).
 
@@ -193,6 +193,8 @@ def group_norm(m: Norm, x: torch.Tensor, num_groups: int,
         return gelu(y)
     if act == "glu":
         return glu(y, dim=1)
+    if act == "silu":
+        return F.silu(y)
     return y
 
 

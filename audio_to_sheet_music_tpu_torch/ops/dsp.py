@@ -49,50 +49,66 @@ def pad_reflect_safe(x: torch.Tensor, pad_left: int, pad_right: int
     return out.reshape(*lead, out.shape[-1])
 
 
-def _window(n_fft: int, device) -> torch.Tensor:
+WINDOWS = ("hann", "rect")
+
+
+def _window(n_fft: int, device, window: str = "hann") -> torch.Tensor:
+    """The analysis window: the periodic Hann (``"hann"``) or ones
+    (``"rect"``, what ``torch.stft`` takes for ``window=None``)."""
+    if window == "rect":
+        return torch.ones(n_fft, dtype=torch.float32, device=device)
+    if window != "hann":
+        raise ValueError(f"stft: window {window!r}, expected one of "
+                         f"{WINDOWS}")
     return torch.hann_window(n_fft, periodic=True, dtype=torch.float32,
                              device=device)
 
 
 def stft(x: torch.Tensor, n_fft: int = 4096, hop: int = 1024,
-         kernel: bool = False, normalized: bool = True) -> torch.Tensor:
+         kernel: bool = False, normalized: bool = True,
+         window: str = "hann") -> torch.Tensor:
     """Centred STFT: ``(..., T)`` -> complex ``(..., F, frames)``, scaled by
     ``n_fft ** -0.5`` when ``normalized`` (torch's convention; the mel
     front end takes it unscaled).  ``kernel=True`` runs ``fused_stft.stft``
-    where ``fused_stft.supports`` the geometry (the JAX routing test)."""
+    where ``fused_stft.supports`` the geometry (the JAX routing test) and
+    the window is Hann, the kernel's.  ``window``: ``"hann"`` (the
+    periodic Hann) or ``"rect"`` (ones: SCNet's STFT, which passes no
+    window)."""
     n_frames = x.shape[-1] // hop + 1
     xp = pad_reflect_safe(x.float(), n_fft // 2, n_fft // 2)
     lead = xp.shape[:-1]
     flat = xp.reshape(-1, xp.shape[-1])
-    if kernel and fused_stft.supports(n_fft, hop):
+    if kernel and window == "hann" and fused_stft.supports(n_fft, hop):
         z = fused_stft.stft(flat.contiguous(), n_fft, hop, n_frames)
         if normalized:
             z = z * (1.0 / math.sqrt(n_fft))
     else:
-        z = torch.stft(flat, n_fft, hop, window=_window(n_fft, x.device),
+        z = torch.stft(flat, n_fft, hop,
+                       window=_window(n_fft, x.device, window),
                        win_length=n_fft, center=False, normalized=normalized,
                        return_complex=True)
     return z.reshape(*lead, *z.shape[-2:])
 
 
 def istft(z: torch.Tensor, length: int, n_fft: int = 4096,
-          hop: int = 1024, normalized: bool = True) -> torch.Tensor:
+          hop: int = 1024, normalized: bool = True,
+          window: str = "hann") -> torch.Tensor:
     """Inverse of ``stft``: complex ``(..., F, frames)`` -> ``(..., length)``.
 
     ``torch.istft(center=True, normalized=normalized, length=length)``
     written out in its own steps (an inverse real FFT a frame, orthonormal
-    when ``normalized``, else scaled by ``1 / n_fft``, the Hann window,
+    when ``normalized``, else scaled by ``1 / n_fft``, the window,
     overlap-add by ``fold``, the centre trimmed, division by the squared
     window's overlap-add), without its check that the envelope is nowhere
     near zero: that check reads a value back to the host, so the host
     would wait for the card in every head, one replica after another on a
     mesh.  The periodic Hann window at ``hop <= n_fft / 2`` overlaps
     itself everywhere inside the trimmed span, whether or not the hop
-    divides the window."""
+    divides the window; so does the rectangular one at ``hop <= n_fft``."""
     lead = z.shape[:-2]
     zz = z.reshape(-1, *z.shape[-2:]).transpose(1, 2)    # (B, frames, F)
     n_frames = zz.shape[1]
-    win = _window(n_fft, z.device)
+    win = _window(n_fft, z.device, window)
     frames = torch.fft.irfft(zz, n=n_fft, dim=-1,
                              norm="ortho" if normalized else "backward")
     total = n_fft + hop * (n_frames - 1)

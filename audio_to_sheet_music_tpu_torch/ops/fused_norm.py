@@ -21,8 +21,9 @@ rows of up to 26 M elements, so a handful of blocks streamed them
   f32, the activation, one rounding to the input's dtype.
 - ``partition``: how a row is cut into blocks, shared by both.
 
-``act`` is ``"none"``, ``"gelu"`` (exact erf, ``F.gelu``'s default) or
-``"glu"`` (``a * sigmoid(b)`` over the channel halves, both normalised).
+``act`` is ``"none"``, ``"gelu"`` (exact erf, ``F.gelu``'s default),
+``"glu"`` (``a * sigmoid(b)`` over the channel halves, both normalised) or
+``"silu"`` (``y * sigmoid(y)``, ``F.silu``).
 ``layout`` is ``"channels"`` for ``(B, C, *spatial)`` with any number of
 groups dividing C (GLU: 1 or an even number), or ``"tokens"`` for a
 ``(B, L, C)`` stream with one group, normalised in place (no transposes:
@@ -66,7 +67,7 @@ import torch.nn.functional as F
 from . import build
 
 EPS = 1e-5
-ACTS = ("none", "gelu", "glu")
+ACTS = ("none", "gelu", "glu", "silu")
 LAYOUTS = ("channels", "tokens")
 # the partition: resident blocks an SM the grid aims at, the fewest
 # elements a block takes once a row is split, and the chunk's multiple
@@ -138,6 +139,8 @@ def _activate(y: torch.Tensor, act: str, layout: str) -> torch.Tensor:
         return F.gelu(y)
     if act == "glu":
         return F.glu(y, dim=-1 if layout == "tokens" else 1)
+    if act == "silu":
+        return F.silu(y)
     return y
 
 

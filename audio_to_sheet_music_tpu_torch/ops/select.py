@@ -26,6 +26,11 @@ GroupNorm is no part of the selection: on the card every norm of the
 model goes through ``fused_norm.group_norm`` under any selection, as any
 op follows its tensor's device.  Its launches are counted here with the
 others'.
+
+``LAYERS`` holds counters of model layers that run no hand-written
+kernel, registered by the model module that counts them when it is
+imported: each is counted, zeroed and booked through a program's replays
+as a kernel's launches are.
 """
 
 from __future__ import annotations
@@ -77,9 +82,21 @@ def name(sel: KernelSelection) -> str:
                     if getattr(sel, f.name))
 
 
+class LayerCount:
+    """A model layer's call counter, in ``launches`` as a kernel wrapper
+    keeps its count."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# model layers counted beside the kernels, by name (see the module notes)
+LAYERS: Dict[str, LayerCount] = {}
+
+
 def _wrappers() -> Dict[str, object]:
-    """Each kernel's wrapper, by kernel name; each counts its launches in
-    its ``launches`` attribute."""
+    """Each kernel's wrapper, by kernel name, and each counted layer;
+    each counts its launches in its ``launches`` attribute."""
     from . import (fused_attn, fused_dconv, fused_enc, fused_norm, fused_rope,
                    fused_stft)
 
@@ -90,7 +107,7 @@ def _wrappers() -> Dict[str, object]:
             "group_norm": fused_norm.group_norm,
             "dec_join": fused_norm.decoder_join,
             "attn_gated": fused_attn.attn_gated,
-            "rope_qkv": fused_rope.rope_qkv}
+            "rope_qkv": fused_rope.rope_qkv, **LAYERS}
 
 
 def launch_counts() -> Dict[str, int]:

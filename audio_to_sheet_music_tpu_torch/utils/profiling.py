@@ -40,6 +40,10 @@ Spans and the counters they sit beside, by layer:
 - ``models.bs_roformer.forward``: ``atsm.model.bs_roformer`` on an eager
   forward (warm-up, the CPU, eager callers; none while a CUDA graph
   captures it); its attention launches are ``launches.attn_gated``.
+- ``models.scnet.forward``: ``atsm.model.scnet`` on an eager forward
+  (likewise none while a CUDA graph captures it); its dual-path layers
+  are ``launches.dual_path``, one a layer (``ops.select.LAYERS``), and
+  its GroupNorms with their SiLU ``launches.group_norm``.
 - ``infer.programs.Program``: ``atsm.program.capture`` (construction: on
   a card the warm-up runs and the capture), ``atsm.program.replay`` (the
   inputs' copies and the replay); ``program.captures`` (programs built)

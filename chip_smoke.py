@@ -33,7 +33,12 @@ Phases, in order; a failed phase exits non-zero and prints no result:
    encoder layers' and decoders' 128 x 384, 512 x 192, 2048 x 96 and
    8192 x 48 rows by 336 frames, and the STFT at (32, 351232).  Then the
    GroupNorm pair (``ops/fused_norm``) at the main path's four norm shapes
-   in bf16 and f32, timed by the profiler's device time, and the ATHT
+   in bf16 and f32, timed by the profiler's device time, and at
+   SCNet-large's: every form one eager group of four 11 s chunks runs
+   (its launch counter checked against the calls) held to the plain
+   version in bf16, six of them (the convolution modules' plain and SiLU
+   norms, the dual-path token norms at 256 and 512 wide) timed in bf16
+   and f32 with their launches in that group; then the ATHT
    head's decoder join (``fused_norm.decoder_join``) at each of a songs
    group's 8 layers and a stream block's freq layer 1 (skip batch = y's)
    against its plain version on f32 operands; at freq layers 0 and 1 the
@@ -271,6 +276,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -353,6 +359,20 @@ GN_FORMS = [((16, 96, 1036, 259), "gelu", "channels"),
             ((4, 96, 66150), "glu", "channels"),
             ((4, 2072, 512), "none", "tokens"),
             ((2048, 6, 259), "gelu", "channels")]
+# SCNet-large's (models.scnet, published widths) in a group of 4 chunks of
+# 11 s (476 frames): the convolution modules' first norm (none) and second
+# (SiLU, C/4 wide) over the widest band's rows of SD blocks 0 and 2 (4 x 462
+# rows of 64 channels, 4 x 55 of 256), and the dual-path layers' token norms
+# at 256 and 512 wide (85 band rows x 476 frames, x 239 after the rfft);
+# each is timed, and every GroupNorm form of one eager SCNet group is held
+# to its plain version (check_scnet_group_norm)
+SCNET_CHUNK, SCNET_GROUP = 485100, 4
+SCNET_GN_FORMS = [((4 * 462, 64, 476), "none", "channels"),
+                  ((4 * 462, 16, 476), "silu", "channels"),
+                  ((4 * 55, 256, 476), "none", "channels"),
+                  ((4 * 55, 64, 476), "silu", "channels"),
+                  ((4, 85 * 476, 256), "none", "tokens"),
+                  ((4, 85 * 239, 512), "none", "tokens")]
 
 
 
@@ -1103,7 +1123,8 @@ def check_stft(gen: torch.Generator) -> dict:
 
 
 def _group_norm_row(gen: torch.Generator, shape: tuple, act: str,
-                    layout: str, dtype: torch.dtype) -> dict:
+                    layout: str, dtype: torch.dtype,
+                    launches_per_group: int = 1) -> dict:
     from audio_to_sheet_music_tpu_torch.ops import fused_norm
 
     c = shape[-1] if layout == "tokens" else shape[1]
@@ -1119,7 +1140,7 @@ def _group_norm_row(gen: torch.Generator, shape: tuple, act: str,
         y = F.group_norm(xc.float(), 1, w, b, fused_norm.EPS).to(dtype)
         y = y.transpose(1, 2) if tokens else y
         return (F.gelu(y) if act == "gelu" else F.glu(y, dim=1)
-                if act == "glu" else y)
+                if act == "glu" else F.silu(y) if act == "silu" else y)
 
     kernel = lambda: fused_norm.group_norm(x, w, b, 1, act=act,  # noqa: E731
                                            layout=layout)
@@ -1136,7 +1157,8 @@ def _group_norm_row(gen: torch.Generator, shape: tuple, act: str,
         by_kernel = device_ms_by_kernel([kernel], 5)[0]
         by_library = device_ms_by_kernel([library], 5)[0]
         row = {"shape": list(shape), "act": act, "layout": layout,
-               "dtype": str(dtype), **err, "launches_per_group": 1,
+               "dtype": str(dtype), **err,
+               "launches_per_group": launches_per_group,
                "ms": sum(by_kernel.values()), "launch_ms": by_kernel,
                "eager_ms": cuda_ms(kernel, iters),
                "plain_ms": cuda_ms(plain, max(2, iters // 5)),
@@ -1170,10 +1192,92 @@ def check_group_norm(gen: torch.Generator) -> dict:
             if dtype == torch.bfloat16:
                 forms.append(row)
             torch.cuda.empty_cache()
-    return _kernel_entry(
+    entry = _kernel_entry(
         "group_norm", "audio_to_sheet_music_tpu_torch/csrc/group_norm.cu",
         "none: PyTorch's GroupNorm, one block a row", forms,
         "launches_per_group", F32_FLOPS, "one launch a form (bf16)")
+    entry.update(check_scnet_group_norm(gen))
+    return entry
+
+
+def _scnet_group_norm_calls() -> Counter:
+    """The GroupNorm calls of one eager SCNet-large forward over a group
+    of ``SCNET_GROUP`` chunks, by (shape, act, layout), counted as the
+    calls reach ``fused_norm.group_norm``; the launches the kernel counts
+    meanwhile (on the module's ``group_norm``, the stand-in) must be as
+    many, and are booked on the wrapper's counter after."""
+    from audio_to_sheet_music_tpu_torch.models import scnet
+    from audio_to_sheet_music_tpu_torch.ops import fused_norm
+
+    model = scnet.init(scnet.PUBLISHED, seed=SEED, device="cuda")
+    chunks = 0.1 * torch.randn((SCNET_GROUP, 2, SCNET_CHUNK),
+                               generator=torch.Generator().manual_seed(SEED))
+    calls, real = Counter(), fused_norm.group_norm
+
+    def counted(x, weight, bias, num_groups, eps=fused_norm.EPS,
+                act="none", layout="channels"):
+        calls[(tuple(x.shape), act, layout)] += 1
+        return real(x, weight, bias, num_groups, eps, act, layout)
+
+    counted.launches = 0
+    fused_norm.group_norm = counted
+    try:
+        with torch.inference_mode():
+            scnet.forward(model, chunks.cuda(), torch.bfloat16)
+        torch.cuda.synchronize()
+    finally:
+        fused_norm.group_norm = real
+    real.launches += counted.launches
+    if counted.launches != sum(calls.values()):
+        raise SmokeFailure(f"SCNet: {sum(calls.values())} GroupNorm calls "
+                           f"but {counted.launches} launches counted")
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def check_scnet_group_norm(gen: torch.Generator) -> dict:
+    """SCNet's GroupNorm forms: every form of one eager SCNet-large group
+    held to the plain version in bf16 (the serving path's type), and the
+    timed forms (``SCNET_GN_FORMS``, bf16 and f32) weighted by their
+    launches in that group, as ``scnet_*``."""
+    from audio_to_sheet_music_tpu_torch.ops import fused_norm
+
+    print("group_norm at SCNet-large's shapes (a group of "
+          f"{SCNET_GROUP} chunks):")
+    calls = _scnet_group_norm_calls()
+    missing = [f for f in SCNET_GN_FORMS if f not in calls]
+    if missing:
+        raise SmokeFailure(f"SCNet ran none of the forms {missing}; "
+                           f"its forms: {sorted(calls)}")
+    print(f"  {sum(calls.values())} launches in {len(calls)} forms "
+          f"({sum(n for (_, a, _), n in calls.items() if a == 'silu')} "
+          "with SiLU)")
+    for (shape, act, layout), n in sorted(calls.items()):
+        if (shape, act, layout) in SCNET_GN_FORMS:
+            continue
+        c = shape[-1] if layout == "tokens" else shape[1]
+        x = (0.7 + 2.0 * torch.randn(shape, generator=gen)).to(
+            "cuda", torch.bfloat16)
+        w = (1.0 + 0.2 * torch.randn(c, generator=gen)).cuda()
+        b = (0.3 * torch.randn(c, generator=gen)).cuda()
+        with torch.inference_mode():
+            compare(f"{shape} {act} {layout} x{n}",
+                    fused_norm.group_norm(x, w, b, 1, act=act, layout=layout),
+                    fused_norm.group_norm_plain(x, w, b, 1, act=act,
+                                                layout=layout),
+                    GN_TOL[torch.bfloat16])
+    forms = []
+    for shape, act, layout in SCNET_GN_FORMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = _group_norm_row(gen, shape, act, layout, dtype,
+                                  calls[(shape, act, layout)])
+            if dtype == torch.bfloat16:
+                forms.append(row)
+            torch.cuda.empty_cache()
+    return {**_path_entry("scnet", forms, "launches_per_group", F32_FLOPS),
+            "scnet_launches_per_group": sum(calls.values()),
+            "scnet_group_forms": len(calls)}
 
 
 def _join_row(gen: torch.Generator, label: str, y_shape: tuple,

@@ -335,10 +335,11 @@ def test_add_launch_counts(counters):
     select.add_launch_counts({"layer_tail": 40, "henc_freq_fused": 4})
     select.add_launch_counts({"layer_tail": -10, "stft": 2,
                               "group_norm": 5})
+    # with the layer counters a model module registered in this process
     assert select.launch_counts() == {
         "layer_tail": 30, "henc_freq_fused": 4, "dconv_rows": 0,
         "attn_block": 0, "stft": 2, "group_norm": 5, "dec_join": 0,
-        "attn_gated": 0, "rope_qkv": 0}
+        "attn_gated": 0, "rope_qkv": 0, **dict.fromkeys(select.LAYERS, 0)}
     with pytest.raises(KeyError):
         select.add_launch_counts({"no_such_kernel": 1})
 
